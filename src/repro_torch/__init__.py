@@ -1,0 +1,6 @@
+"""PyTorch/CUDA port of the ``repro`` model stack, for an NVIDIA H100.
+
+The JAX package ``repro`` stays the reference. This package imports ``torch``
+and never ``jax`` or anything of ``repro``: what it needs of the pure-Python
+layers (``configs``, ``core``, ``obs.trace``) it keeps as its own copies.
+"""

@@ -1,0 +1,101 @@
+"""Build the port's CUDA sources with ``nvcc`` and load them with ``ctypes``.
+
+Each ``csrc/<name>.cu`` exposes a plain C interface and compiles on its own
+into ``build/kernels/<name>-<hash>.so`` at the repository root, the hash taken
+over the source, so an edited source never loads a stale library and an
+unchanged one is built once. ``build_all()`` starts one ``nvcc`` per source,
+all at once; ``library(name)`` builds what is missing and loads it.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC")
+
+_lock = threading.Lock()
+_loaded: dict[str, ctypes.CDLL] = {}
+
+
+def sources() -> list[str]:
+    """Names of every CUDA source of the port."""
+    return sorted(p.stem for p in CSRC.glob("*.cu"))
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the port's CUDA kernels build only where "
+                       "the CUDA toolkit is installed")
+
+
+def _target(name: str) -> Path:
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:16]
+    return BUILD_DIR / f"{name}-{digest}.so"
+
+
+def build_all(names: list[str] | None = None) -> dict[str, Path]:
+    """Compile every source not yet built, one ``nvcc`` each, in parallel.
+
+    Raises with the compiler's output if any build fails.
+    """
+    names = sources() if names is None else names
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    todo = {n: _target(n) for n in names}
+    procs = {}
+    for name, out in todo.items():
+        if out.exists():
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True), tmp, out)
+    failed = []
+    for name, (proc, tmp, out) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"--- nvcc {name}.cu (rc {proc.returncode}) ---\n{log}")
+            tmp.unlink(missing_ok=True)
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
+    return todo
+
+
+def library(name: str, signatures: dict[str, list]) -> ctypes.CDLL:
+    """The loaded shared library of ``csrc/<name>.cu``, built on first use.
+
+    ``signatures`` maps each C entry point to its ``argtypes``; every entry
+    returns an int (a ``cudaError_t``). Pointers and the stream must be
+    ``c_void_p``, or ctypes cuts them to 32 bits.
+    """
+    with _lock:
+        lib = _loaded.get(name)
+        if lib is None:
+            path = build_all([name])[name]
+            lib = ctypes.CDLL(str(path))
+            lib.cuda_error_string.argtypes = [ctypes.c_int]
+            lib.cuda_error_string.restype = ctypes.c_char_p
+            for fn, argtypes in signatures.items():
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = ctypes.c_int
+            _loaded[name] = lib
+        return lib
+
+
+def check(lib: ctypes.CDLL, err: int, what: str) -> None:
+    """Raise if a C entry point returned a CUDA error code."""
+    if err != 0:
+        msg = lib.cuda_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} ({msg})")

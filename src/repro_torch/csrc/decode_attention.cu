@@ -196,6 +196,7 @@ cudaError_t dispatch_hd(const void* q, const void* k, const void* v, const int* 
                         int K, int hd, int window, cudaStream_t st) {
   switch (hd) {
     case 64: return launch<T, 64>(q, k, v, kv_len, o, pm, pl, pa, B, T_len, H, K, window, st);
+    case 112: return launch<T, 112>(q, k, v, kv_len, o, pm, pl, pa, B, T_len, H, K, window, st);
     case 128: return launch<T, 128>(q, k, v, kv_len, o, pm, pl, pa, B, T_len, H, K, window, st);
     default: return cudaErrorInvalidValue;
   }

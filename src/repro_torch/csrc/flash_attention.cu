@@ -214,6 +214,7 @@ cudaError_t dispatch_hd(const void* q, const void* k, const void* v, void* o, in
                         cudaStream_t stream) {
   switch (hd) {
     case 64: return launch<T, 64>(q, k, v, o, B, S, T_len, H, K, causal, window, stream);
+    case 112: return launch<T, 112>(q, k, v, o, B, S, T_len, H, K, causal, window, stream);
     case 128: return launch<T, 128>(q, k, v, o, B, S, T_len, H, K, causal, window, stream);
     default: return cudaErrorInvalidValue;
   }

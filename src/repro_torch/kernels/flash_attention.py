@@ -18,7 +18,7 @@ from . import build
 
 _NEG = -2.0e38
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 112, 128)
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {"flash_attention_fwd": [_P] * 4 + [_I] * 9 + [_P]}
 

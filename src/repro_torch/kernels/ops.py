@@ -18,8 +18,9 @@ import torch
 from .decode_attention import decode_attention_cuda, decode_attention_plain
 from .flash_attention import flash_attention_cuda, flash_attention_plain
 from .rmsnorm import rmsnorm_plain, rmsnorm_triton
+from .ssd_scan import ssd_intra_chunk_cuda, ssd_intra_chunk_plain
 
-KERNELS = ("rmsnorm", "flash_attention", "decode_attention")
+KERNELS = ("rmsnorm", "flash_attention", "decode_attention", "ssd_intra_chunk")
 LAUNCHES: dict[str, int] = dict.fromkeys(KERNELS, 0)
 
 
@@ -65,4 +66,14 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return decode_attention_plain(q, k, v, kv_len=kv_len, window=window)
     out = decode_attention_cuda(q, k, v, kv_len=kv_len, window=window)
     LAUNCHES["decode_attention"] += 1
+    return out
+
+
+def ssd_intra_chunk(la: torch.Tensor, C: torch.Tensor, B_in: torch.Tensor, x: torch.Tensor):
+    """la: (B,nc,Q,H); C/B_in: (B,nc,Q,N); x: (B,nc,Q,H,P) ->
+    (y (B,nc,Q,H,P), states (B,nc,H,P,N), tot (B,nc,H)), float32."""
+    if not _on_cuda(la, "ssd_intra_chunk"):
+        return ssd_intra_chunk_plain(la, C, B_in, x)
+    out = ssd_intra_chunk_cuda(la, C, B_in, x)
+    LAUNCHES["ssd_intra_chunk"] += 1
     return out

@@ -1,0 +1,92 @@
+"""Mamba2 SSD intra-chunk block: the CUDA kernel's wrapper and its plain
+PyTorch version.
+
+The kernel, ``csrc/ssd_intra_chunk.cu``, replaces the TPU kernel
+``src/repro/kernels/ssd_scan.py:ssd_intra_chunk``. On the H100 it is bound
+by operations; its header says what the design does about that. It reads la
+and x in their natural layouts (the TPU wrapper transposed both) and computes
+C . B^T once for a group of heads. The inter-chunk scan stays in the model
+code (``models/mamba2.ssd_chunked``).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from . import build
+
+MAX_HEADS_PER_BLOCK = 16
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {"ssd_intra_chunk_fwd": [_P] * 7 + [_I] * 6 + [_P]}
+
+
+def ssd_intra_chunk_plain(la: torch.Tensor, C: torch.Tensor, B_in: torch.Tensor,
+                          x: torch.Tensor):
+    """la: (B,nc,Q,H) log-decay; C/B_in: (B,nc,Q,N); x: (B,nc,Q,H,P).
+
+    Returns (y (B,nc,Q,H,P), states (B,nc,H,P,N), tot (B,nc,H)) in float32,
+    or in float64 where the inputs are float64 (an oracle for the kernel).
+    """
+    la, C, B_in, x = (t.to(torch.promote_types(t.dtype, torch.float32))
+                      for t in (la, C, B_in, x))
+    Q = la.shape[2]
+    L = torch.cumsum(la, dim=2)
+    CB = torch.einsum("bcqn,bcsn->bcqs", C, B_in)
+    seg = L[:, :, :, None, :] - L[:, :, None, :, :]              # (B,nc,Q,Q,H)
+    tri = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=la.device))
+    M = torch.where(tri[None, None, :, :, None], torch.exp(seg), 0.0) * CB[..., None]
+    y = torch.einsum("bcqsh,bcshp->bcqhp", M, x)
+    tot = L[:, :, -1, :]
+    w_end = torch.exp(tot[:, :, None, :] - L)
+    st = torch.einsum("bcqh,bcqhp,bcqn->bchpn", w_end, x, B_in)
+    return y, st, tot
+
+
+def heads_per_block(BC: int, H: int, n_sm: int) -> int:
+    """Heads a block serves: fewest waves of one-block-per-SM blocks over the
+    card, each block paying for one C . B^T (about one head's work) besides
+    its heads."""
+    def cost(hg):
+        waves = math.ceil(BC * math.ceil(H / hg) / n_sm)
+        return waves * (hg + 1)
+    return min(range(1, min(H, MAX_HEADS_PER_BLOCK) + 1), key=cost)
+
+
+def ssd_intra_chunk_cuda(la: torch.Tensor, C: torch.Tensor, B_in: torch.Tensor,
+                         x: torch.Tensor):
+    """Launch the CUDA kernel on PyTorch's current stream. Takes contiguous
+    float32 CUDA tensors with Q % 8 == 0, Q <= 128, N % 4 == 0, P % 4 == 0."""
+    ts = (la, C, B_in, x)
+    if not all(t.is_cuda for t in ts):
+        raise ValueError("ssd_intra_chunk_cuda takes CUDA tensors")
+    if any(t.dtype != torch.float32 for t in ts):
+        raise ValueError("ssd_intra_chunk_cuda takes float32 tensors")
+    if la.dim() != 4 or C.dim() != 4 or x.dim() != 5 or C.shape != B_in.shape:
+        raise ValueError(f"bad shapes la {tuple(la.shape)} C {tuple(C.shape)} "
+                         f"B {tuple(B_in.shape)} x {tuple(x.shape)}")
+    Bs, nc, Q, H = la.shape
+    N, P = C.shape[-1], x.shape[-1]
+    if C.shape[:3] != (Bs, nc, Q) or x.shape[:4] != (Bs, nc, Q, H):
+        raise ValueError(f"la {tuple(la.shape)}, C {tuple(C.shape)} and x {tuple(x.shape)} "
+                         "do not match")
+    if Q % 8 or Q > 128 or N % 4 or P % 4:
+        raise ValueError(f"ssd_intra_chunk_cuda takes Q % 8 == 0, Q <= 128, N % 4 == 0 and "
+                         f"P % 4 == 0; got Q {Q}, N {N}, P {P}")
+    if not all(t.is_contiguous() and t.data_ptr() % 16 == 0 for t in ts):
+        raise ValueError("ssd_intra_chunk_cuda needs contiguous, 16-byte aligned tensors")
+    lib = build.library("ssd_intra_chunk", _SIGNATURES)
+    n_sm = torch.cuda.get_device_properties(x.device).multi_processor_count
+    hg = heads_per_block(Bs * nc, H, n_sm)
+    y = torch.empty_like(x)
+    st = torch.empty((Bs, nc, H, P, N), dtype=torch.float32, device=x.device)
+    tot = torch.empty((Bs, nc, H), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        err = lib.ssd_intra_chunk_fwd(
+            la.data_ptr(), C.data_ptr(), B_in.data_ptr(), x.data_ptr(), y.data_ptr(),
+            st.data_ptr(), tot.data_ptr(), Bs * nc, Q, H, N, P, hg,
+            torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(lib, err, "ssd_intra_chunk_fwd")
+    return y, st, tot

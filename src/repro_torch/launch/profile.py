@@ -1,15 +1,15 @@
 """Where the serving time goes on the card: a torch.profiler breakdown.
 
-Builds the dense model (qwen3-14b by default, all its layers, bf16, random
-weights from ``--seed``), warms up, then profiles two windows separately:
-one batched prefill, and the greedy decode steps that follow it. For each
-window it prints one JSON line: host-clock wall time without and with the
-profiler, device busy time (the union of kernel intervals) and idle share,
-and device time by category (the port's three kernels, matrix products,
-everything else) and by kernel.
+Builds the model (qwen3-14b by default, ``--arch zamba2-7b`` for the hybrid;
+all its layers, bf16, random weights from ``--seed``), warms up, then
+profiles two windows separately: one batched prefill, and the greedy decode
+steps that follow it. For each window it prints one JSON line: host-clock
+wall time without and with the profiler, device busy time (the union of
+kernel intervals) and idle share, and device time by category (the port's
+four kernels, matrix products, everything else) and by kernel.
 Needs a CUDA device.
 
-Run:  PYTHONPATH=src python -m repro_torch.launch.profile [--layers 40] [--gen 32]
+Run:  PYTHONPATH=src python -m repro_torch.launch.profile [--arch zamba2-7b] [--layers N]
 """
 
 from __future__ import annotations
@@ -31,6 +31,7 @@ CATEGORIES = (
     ("flash_attention", re.compile(r"flash_fwd_kernel")),
     ("decode_attention", re.compile(r"decode_(split|combine)_kernel")),
     ("rmsnorm", re.compile(r"rmsnorm_kernel")),
+    ("ssd_intra_chunk", re.compile(r"ssd_intra_chunk_kernel")),
     ("matmul", re.compile(r"gemm|gemv|cutlass|xmma|nvjet|cublas", re.I)),
 )
 

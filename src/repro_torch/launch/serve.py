@@ -8,7 +8,8 @@ from there (modeled time reported), then requests are decoded with a KV
 cache. Prefill and decode run the port's kernels on the card.
 
 Run:  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-14b --requests 8
-      (add ``--device cpu`` to run the plain path on the CPU)
+      (``--arch zamba2-7b`` for the Mamba2 hybrid; add ``--device cpu`` to run
+      the plain path on the CPU)
 """
 
 from __future__ import annotations

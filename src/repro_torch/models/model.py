@@ -1,4 +1,4 @@
-"""Family dispatch: build a Model from a ModelConfig (dense only so far)."""
+"""Family dispatch: build a Model from a ModelConfig (dense and hybrid so far)."""
 
 from __future__ import annotations
 
@@ -7,6 +7,9 @@ from .common import Model
 
 
 def build_model(cfg: ModelConfig) -> Model:
+    if cfg.family == "hybrid":
+        from . import hybrid
+        return hybrid.build(cfg)
     if cfg.family != "dense":
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
     if cfg.local_global_ratio:

@@ -1,0 +1,73 @@
+"""Each hand-written kernel against its plain version on a CUDA card, at the
+tolerances of tests/test_kernels.py, for the attention shapes of qwen3-14b
+(GQA, hd 128) and zamba2-7b (MHA, hd 112) and the SSD sweep. Every test here
+carries the ``cuda`` marker and skips without a card. The file imports no JAX,
+so it runs where only PyTorch is installed:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+"""
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import numpy as np
+
+from repro_torch.kernels import ops
+from repro_torch.kernels.decode_attention import decode_attention_plain
+from repro_torch.kernels.flash_attention import flash_attention_plain
+from repro_torch.kernels.rmsnorm import rmsnorm_plain
+from repro_torch.kernels.ssd_scan import ssd_intra_chunk_plain
+
+pytestmark = pytest.mark.cuda
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+SSD_TOLS = (2e-4, 2e-4, 1e-5)          # y, state, tot (tests/test_kernels.py:81-83)
+
+
+@pytest.fixture
+def cuda_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (sm_90a) with nvcc and triton")
+    from repro_torch.device import resolve_device
+    return resolve_device("cuda")                      # TF32 off
+
+
+def _card_inputs(dev, shapes, dtype, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn(s, generator=g, device=dev).to(dtype) for s in shapes]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_kernels_match_plain_on_card(cuda_card, dtype):
+    td = DTYPES[dtype]
+    tol = TOL[dtype]
+    x, s = _card_inputs(cuda_card, [(2, 33, 5120), (5120,)], td, 0)
+    torch.testing.assert_close(ops.rmsnorm(x, s), rmsnorm_plain(x, s), atol=tol, rtol=tol)
+    for H, K, hd in ((40, 8, 128), (32, 32, 112)):
+        q, k, v = _card_inputs(cuda_card, [(2, 300, H, hd), (2, 300, K, hd), (2, 300, K, hd)],
+                               td, 1)
+        for window in (None, 64):
+            torch.testing.assert_close(ops.flash_attention(q, k, v, window=window),
+                                       flash_attention_plain(q, k, v, window=window),
+                                       atol=tol, rtol=tol)
+            kl = torch.tensor(200, dtype=torch.int32, device=cuda_card)
+            torch.testing.assert_close(
+                ops.decode_attention(q[:, :1].contiguous(), k, v, kv_len=kl, window=window),
+                decode_attention_plain(q[:, :1], k, v, kv_len=kl, window=window),
+                atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("shape", [(2, 4, 32, 8, 16, 16), (1, 2, 64, 4, 64, 64),
+                                   (1, 1, 128, 2, 32, 64), (2, 3, 128, 12, 64, 64)])
+def test_ssd_kernel_matches_plain_on_card(cuda_card, shape):
+    B, nc, Q, H, N, P = shape
+    rng = np.random.default_rng(9)
+    la = -np.abs(rng.standard_normal((B, nc, Q, H))) * 0.1
+    C, Bm = rng.standard_normal((B, nc, Q, N)), rng.standard_normal((B, nc, Q, N))
+    x = rng.standard_normal((B, nc, Q, H, P))
+    args = [torch.from_numpy(a.astype(np.float32)).to(cuda_card) for a in (la, C, Bm, x)]
+    for got, want, tol in zip(ops.ssd_intra_chunk(*args), ssd_intra_chunk_plain(*args),
+                              SSD_TOLS):
+        torch.testing.assert_close(got, want, atol=tol, rtol=tol)

@@ -1,7 +1,7 @@
 """The port's kernel modules against repro's Pallas kernels (interpret mode)
-and pure-jnp oracles, over the sweeps of tests/test_kernels.py; the device
-dispatch of ``repro_torch.kernels.ops``; and, on a CUDA card only, each
-hand-written kernel against its plain version."""
+and pure-jnp oracles, over the sweeps of tests/test_kernels.py, and the
+device dispatch of ``repro_torch.kernels.ops``. Each hand-written kernel
+against its plain version on a CUDA card: tests/test_torch_cuda.py."""
 
 import pytest
 
@@ -19,6 +19,7 @@ from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.kernels.decode_attention import decode_attention_plain  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention_plain  # noqa: E402
 from repro_torch.kernels.rmsnorm import rmsnorm_plain  # noqa: E402
+from repro_torch.kernels.ssd_scan import ssd_intra_chunk_plain  # noqa: E402
 
 DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
@@ -101,7 +102,15 @@ def test_ops_dispatch_cpu_to_plain_without_counting():
     kl = torch.tensor(5, dtype=torch.int32)
     assert torch.equal(tops.decode_attention(q[:, :1], k, k, kv_len=kl),
                        decode_attention_plain(q[:, :1], k, k, kv_len=kl))
-    assert tops.LAUNCHES == {"rmsnorm": 0, "flash_attention": 0, "decode_attention": 0}
+    la = -torch.from_numpy(np.abs(rng.standard_normal((1, 2, 32, 4))).astype(np.float32))
+    C, Bm = (torch.from_numpy(rng.standard_normal((1, 2, 32, 16)).astype(np.float32))
+             for _ in range(2))
+    xs = torch.from_numpy(rng.standard_normal((1, 2, 32, 4, 16)).astype(np.float32))
+    for got, want in zip(tops.ssd_intra_chunk(la, C, Bm, xs),
+                         ssd_intra_chunk_plain(la, C, Bm, xs)):
+        assert torch.equal(got, want)
+    assert tops.LAUNCHES == {"rmsnorm": 0, "flash_attention": 0, "decode_attention": 0,
+                             "ssd_intra_chunk": 0}
 
 
 def test_ops_refuse_other_devices():
@@ -115,6 +124,7 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     from repro_torch.kernels.decode_attention import decode_attention_cuda
     from repro_torch.kernels.flash_attention import flash_attention_cuda
     from repro_torch.kernels.rmsnorm import rmsnorm_triton
+    from repro_torch.kernels.ssd_scan import ssd_intra_chunk_cuda
     x = torch.ones(1, 8, 2, 64)
     with pytest.raises(ValueError, match="CUDA tensors"):
         rmsnorm_triton(x, torch.ones(64))
@@ -122,36 +132,5 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         flash_attention_cuda(x, x, x)
     with pytest.raises(ValueError, match="CUDA tensors"):
         decode_attention_cuda(x[:, :1], x, x, kv_len=torch.tensor(1, dtype=torch.int32))
-
-
-# -- on the card only ------------------------------------------------------------
-@pytest.fixture
-def cuda_card():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU (sm_90a) with nvcc and triton")
-    return torch.device("cuda")
-
-
-def _card_inputs(dev, shapes, dtype, seed):
-    g = torch.Generator(device=dev).manual_seed(seed)
-    return [torch.randn(s, generator=g, device=dev).to(dtype) for s in shapes]
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_kernels_match_plain_on_card(cuda_card, dtype):
-    td = DTYPES[dtype][1]
-    tol = TOL[dtype]
-    x, s = _card_inputs(cuda_card, [(2, 33, 5120), (5120,)], td, 0)
-    torch.testing.assert_close(tops.rmsnorm(x, s), rmsnorm_plain(x, s), atol=tol, rtol=tol)
-    q, k, v = _card_inputs(cuda_card, [(2, 300, 40, 128), (2, 300, 8, 128), (2, 300, 8, 128)],
-                           td, 1)
-    for window in (None, 64):
-        torch.testing.assert_close(tops.flash_attention(q, k, v, window=window),
-                                   flash_attention_plain(q, k, v, window=window),
-                                   atol=tol, rtol=tol)
-        kl = torch.tensor(200, dtype=torch.int32, device=cuda_card)
-        torch.testing.assert_close(
-            tops.decode_attention(q[:, :1].contiguous(), k, v, kv_len=kl, window=window),
-            decode_attention_plain(q[:, :1], k, v, kv_len=kl, window=window),
-            atol=tol, rtol=tol)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ssd_intra_chunk_cuda(x, x, x, x[..., None])

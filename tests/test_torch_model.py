@@ -152,6 +152,16 @@ def test_sdpa_matches_repro_masks(window):
 
 def test_build_model_refuses_unported_families():
     from repro_torch.configs import get_smoke as port_smoke
-    for arch in ("qwen3-moe-30b-a3b", "gemma3-12b", "zamba2-7b", "whisper-tiny"):
+    for arch in ("qwen3-moe-30b-a3b", "gemma3-12b", "whisper-tiny"):
         with pytest.raises(NotImplementedError):
             build_model(port_smoke(arch))
+
+
+def test_build_model_builds_the_hybrid():
+    from repro_torch.configs import get_smoke as port_smoke
+    from repro_torch.models import hybrid
+    cfg = port_smoke("zamba2-7b")
+    model = build_model(cfg)
+    assert model.cfg is cfg and model.prefill.func is hybrid.prefill
+    params = model.init(torch.Generator().manual_seed(0))
+    assert params["mamba_groups"]["mamba"]["D"].dtype == torch.float32

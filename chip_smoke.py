@@ -73,6 +73,31 @@ def time_ms(torch, fn, iters: int = 10, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(torch, fn, iters: int = 10, warmup: int = 2, tries: int = 3):
+    """Mean summed device time of the kernels one ``fn()`` launches, from
+    torch.profiler (as ``repro_torch.launch.profile`` reads a window).
+
+    Now and then a profiler window comes back with no device activity at
+    all (seen on an H100 with torch 2.11); the window is then
+    taken again, and after ``tries`` empty windows the time is None: not
+    measured. Whether the kernel ran is checked by its output, not here."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warmup):
+        fn()
+    for _ in range(tries):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        spans = [e.time_range.end - e.time_range.start for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if spans:
+            return sum(spans) / iters / 1e3
+        log("chip_smoke: a profiler window recorded no device activity; taking it again")
+    return None
+
+
 def rotating(sets):
     """Call-by-call rotation over input copies, so a timed kernel does not
     find its inputs in the 50 MB L2 from the previous call."""
@@ -169,7 +194,11 @@ def kernel_cases(torch):
     for Bq, S, H, K, hd, window, main in [
             (2, 512, 40, 8, 128, None, None), (2, 500, 40, 8, 128, None, None),
             (2, 512, 40, 8, 128, 64, None), (B, PROMPT, 40, 8, 128, None, QWEN),
-            (2, 500, 32, 32, 112, None, None), (B, PROMPT, 32, 32, 112, None, ZAMBA)]:
+            (2, 500, 32, 32, 112, None, None), (B, PROMPT, 32, 32, 112, None, ZAMBA),
+            # edges: shorter than a q tile, a ragged second tile, hd 64 with G = 8
+            (2, 17, 40, 8, 128, None, None), (2, 65, 40, 8, 128, None, None),
+            (2, 17, 32, 32, 112, None, None), (2, 65, 32, 32, 112, 64, None),
+            (2, 300, 64, 8, 64, None, None), (2, 65, 64, 8, 64, 64, None)]:
         pairs = sum(min(r + 1, window or r + 1) for r in range(S))   # valid (row, col)
         cases.append(dict(
             kernel="flash_attention", desc={"B": Bq, "S": S, "T": S, "H": H, "K": K,
@@ -189,7 +218,8 @@ def kernel_cases(torch):
     decode_shapes = [(40, 8, 128, kv_len, window)
                      for kv_len in (1, 37, 300, T) for window in (None, 64)]
     decode_shapes += [(40, 8, 128, PROMPT + GEN // 2, None), (32, 32, 112, 1, None),
-                      (32, 32, 112, 300, None), (32, 32, 112, PROMPT + GEN // 2, None)]
+                      (32, 32, 112, 300, None), (32, 32, 112, PROMPT + GEN // 2, None),
+                      (32, 32, 112, 17, None), (32, 32, 112, T, None), (32, 32, 112, 17, 64)]
     for H, K, hd, kv_len, window in decode_shapes:
         def make(dtype, H=H, K=K, hd=hd, kv_len=kv_len, window=window):
             g = torch.Generator(device=dev).manual_seed(1)
@@ -280,13 +310,17 @@ def run_kernel_phase(torch) -> dict:
             sets = rotating([a] + [case["make"](dtypes[dtype_name])
                                    for _ in range(copies_for(nbytes) - 1)])
             ms = time_ms(torch, lambda: case["run"](sets()))
+            dev_ms = device_ms(torch, lambda: case["run"](sets()))
             plain_ms = time_ms(torch, lambda: case["plain"](sets()))
-            lib_ms = (time_ms(torch, lambda: case["library"](sets()))
-                      if case["library"] else None)
+            lib_ms = lib_dev_ms = None
+            if case["library"]:
+                lib_ms = time_ms(torch, lambda: case["library"](sets()))
+                lib_dev_ms = device_ms(torch, lambda: case["library"](sets()))
             bound_ms, bound_by = bound(nbytes, case["flops"], dtype_name)
             row = {"phase": "kernel", "kernel": case["kernel"], **case["desc"],
                    "dtype": dtype_name, "max_abs_err": err, "tol": list(tols), "ok": ok,
-                   **extra, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                   **extra, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+                   "library_ms": lib_ms, "library_device_ms": lib_dev_ms,
                    "bound_ms": bound_ms, "bound_by": bound_by}
             emit(row)
             if not ok:
@@ -435,7 +469,8 @@ SOURCES = {
     "ssd_intra_chunk": ("cuda", "src/repro_torch/csrc/ssd_intra_chunk.cu",
                         "src/repro/kernels/ssd_scan.py:68", ZAMBA),
 }
-TIMES = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+TIMES = ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+         "library_device_ms")
 
 
 def kernels_line(main_rows: dict, launches: dict) -> dict:

@@ -11,17 +11,37 @@
 //
 // What bounds it on the H100: bytes. Each step reads the valid prefix of the
 // layer's K and V cache (2 * B * kv_len * K * hd * itemsize) for ~4 flops per
-// element, far below the card's ~295 flop/byte ridge.
+// element, far below the card's ~295 flop/byte ridge. So the design keeps
+// enough bytes in flight on every SM and reads each cache row once per step.
 //
-// Design: the TPU's sequential KV grid axis is split over blocks. One block
-// per (chunk of CH = 64 cache columns, b, kv head): it stages the chunk's K
-// and V once in shared memory and serves all H/K query heads of the group
-// from it, so the cache is read once per step and not H/K times. Each block
-// writes a partial (m, l, acc) in float32; a second small kernel combines the
-// partials of a (b, h). B*K*ceil(T/CH) blocks fill the 132 SMs where B*H
-// blocks alone would not. kv_len is read from device memory, so the step
-// needs no host value and can later be captured in a CUDA graph; chunks
-// wholly outside [kv_len - window, kv_len) exit at once. Plain float32 FMAs.
+// Split-then-combine: one block per (chunk of cache columns, b, kv head
+// [, group of up to 8 query heads]) serves all query heads of its kv head from
+// the same staged rows, so the cache is read once per step and not H/K times,
+// and writes a partial (m, l, acc) in float32; decode_combine_kernel merges
+// the partials of a (b, h). kv_len is read from device memory and the grid
+// depends only on (B, K, T), so a step needs no host value and can later be
+// captured in a CUDA graph; chunks wholly outside [kv_len - window, kv_len)
+// exit at once. The partials live in one float32 scratch buffer: m, then l
+// (B*H*nsplit each), then acc (B*H*nsplit*hd).
+//
+// Two split kernels, chosen by dtype (not a fallback: each dtype has one):
+//
+// bfloat16 -- decode_split_kernel_bf16. The chunk length comes from
+//   plan_splits() in kernels/decode_attention.py: about 4 blocks per SM, in
+//   multiples of 16 rows (zamba2-7b, B*K = 256, T = 544: 2 splits of 272;
+//   qwen3-14b, B*K = 64, T = 544: 7 splits of 80). Each block streams its
+//   rows through a 3-stage cp.async ring of 32-row K and V tiles, 16-byte
+//   loads kept as bf16 in shared memory, rows past the valid range
+//   zero-filled. Each warp takes 8 rows of a tile; a row is 16 lanes of 8
+//   columns (8 lanes at hd 64), so a warp scores 2 (4) rows at once with
+//   float32 FMAs and shuffles within the row's lanes, for up to 8 query
+//   heads held in registers. Every warp works whatever H/K is. Each warp
+//   keeps its own running max, sum and acc; the 4 warps merge through shared
+//   memory once per chunk.
+//
+// float32 -- decode_split_kernel, plain FMAs on chunks of CH = 64 rows
+//   converted to float32 in shared memory (the float32 path keeps its 2e-5
+//   tolerance and is not on the serving path).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -29,6 +49,7 @@
 #include <cmath>
 
 namespace {
+
 
 constexpr int CH = 64;
 constexpr int NTHREADS = 128;
@@ -168,6 +189,321 @@ __global__ void decode_combine_kernel(const float* __restrict__ part_m,
   o[bh * HD + d] = from_f<T>(acc / (L == 0.f ? 1.f : L));
 }
 
+
+// ---------------------------------------------------------------------------
+// bfloat16 split kernel
+// ---------------------------------------------------------------------------
+namespace hopper {
+
+constexpr int NWARPS = NTHREADS / 32;
+constexpr int SUB = 32;          // cache rows per ring stage
+constexpr int STAGES = 3;
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(src_bytes) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// 8 bf16 (16 bytes) to float32
+__device__ __forceinline__ void unpack8(const uint4& u, float (&f)[8]) {
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    f[2 * i] = __uint_as_float(w[i] << 16);
+    f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+
+// GT: query heads served per block (the group's G = H/K, or a slice of it).
+template <int HD, int GT>
+__global__ void __launch_bounds__(NTHREADS)
+decode_split_kernel_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                         const __nv_bfloat16* __restrict__ v, const int* __restrict__ kv_len_ptr,
+                         float* __restrict__ part_m, float* __restrict__ part_l,
+                         float* __restrict__ part_acc, int T_len, int H, int K, int window,
+                         float scale_log2, int chunk) {
+  constexpr int VPR = HD / 8;                  // 16-byte vectors per row
+  constexpr int LPR = VPR <= 8 ? 8 : 16;       // lanes per row
+  constexpr int RPS = 32 / LPR;                // rows a warp scores at once
+  constexpr int STEPS = SUB / NWARPS / RPS;
+  constexpr int ROW_BYTES = HD * 2;
+  constexpr int STAGE_BYTES = 2 * SUB * ROW_BYTES;
+  const int G = H / K;
+  const int ngroups = (G + GT - 1) / GT;
+  const int split = blockIdx.x;
+  const int nsplit = gridDim.x;
+  const int b = blockIdx.y / (K * ngroups);
+  const int kh = (blockIdx.y / ngroups) % K;
+  const int hg = blockIdx.y % ngroups;
+  const int h0 = kh * G + hg * GT;             // first query head of this block
+  const int ng = min(GT, G - hg * GT);         // live heads
+  const int tid = threadIdx.x;
+
+  const int kv_len = *kv_len_ptr;
+  const int hi = min(kv_len, T_len);
+  const int lo = window >= 0 ? max(0, kv_len - window) : 0;
+  const int s0 = split * chunk;
+  const int a = max(s0, lo);                   // valid rows of this chunk: [a, e)
+  const int e = min(min(s0 + chunk, T_len), hi);
+
+  if (a >= e) {
+    for (int idx = tid; idx < ng * HD; idx += NTHREADS) {
+      const int g = idx / HD, d = idx % HD;
+      const int64_t row = ((int64_t)b * H + h0 + g) * nsplit + split;
+      part_acc[row * HD + d] = 0.f;
+      if (d == 0) {
+        part_m[row] = NEG;
+        part_l[row] = 0.f;
+      }
+    }
+    return;
+  }
+
+  extern __shared__ __align__(16) uint8_t smem_ring[];
+  const uint32_t ring = static_cast<uint32_t>(__cvta_generic_to_shared(smem_ring));
+  const int warp = tid / 32, lane = tid % 32;
+  const int lr = lane / LPR;                   // row within a warp step
+  const int lc = lane % LPR;                   // 16-byte vector within the row
+  const bool lane_on = lc < VPR;
+
+  // q, pre-scaled to log2 units: this lane's 8 columns of each head
+  float qf[GT][8];
+#pragma unroll
+  for (int g = 0; g < GT; ++g) {
+    if (lane_on && g < ng) {
+      const uint4 u = *reinterpret_cast<const uint4*>(q + ((int64_t)b * H + h0 + g) * HD + lc * 8);
+      unpack8(u, qf[g]);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) qf[g][i] *= scale_log2;
+    } else {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) qf[g][i] = 0.f;
+    }
+  }
+
+  const int64_t kv_row = (int64_t)K * HD;
+  const __nv_bfloat16* kb = k + (int64_t)b * T_len * kv_row + (int64_t)kh * HD;
+  const __nv_bfloat16* vb = v + (int64_t)b * T_len * kv_row + (int64_t)kh * HD;
+  const int nsub = (e - a + SUB - 1) / SUB;
+
+  auto load = [&](int t) {
+    const uint32_t st = ring + (t % STAGES) * STAGE_BYTES;
+    const int r0 = a + t * SUB;
+    for (int idx = tid; idx < SUB * VPR; idx += NTHREADS) {
+      const int r = idx / VPR, c = idx % VPR;
+      const bool in = r0 + r < e;
+      const int64_t off = (int64_t)(in ? r0 + r : a) * kv_row + c * 8;
+      const uint32_t dst = st + r * ROW_BYTES + c * 16;
+      cp_async16(dst, kb + off, in ? 16 : 0);
+      cp_async16(dst + SUB * ROW_BYTES, vb + off, in ? 16 : 0);
+    }
+  };
+
+#pragma unroll
+  for (int t = 0; t < STAGES - 1; ++t) {
+    if (t < nsub) load(t);
+    cp_async_commit();
+  }
+
+  float m[GT], l[GT], acc[GT][8];
+#pragma unroll
+  for (int g = 0; g < GT; ++g) {
+    m[g] = NEG;
+    l[g] = 0.f;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) acc[g][i] = 0.f;
+  }
+
+  for (int t = 0; t < nsub; ++t) {
+    if (t + STAGES - 1 < nsub) load(t + STAGES - 1);
+    cp_async_commit();
+    cp_async_wait<STAGES - 1>();
+    __syncthreads();
+
+    const uint8_t* ks = smem_ring + (t % STAGES) * STAGE_BYTES;
+    const uint8_t* vs = ks + SUB * ROW_BYTES;
+    const int r0 = a + t * SUB;
+    float sc[STEPS][GT];
+#pragma unroll
+    for (int j = 0; j < STEPS; ++j) {
+      const int r = warp * (SUB / NWARPS) + j * RPS + lr;
+      float kf[8];
+      if (lane_on) {
+        unpack8(*reinterpret_cast<const uint4*>(ks + r * ROW_BYTES + lc * 16), kf);
+      } else {
+#pragma unroll
+        for (int i = 0; i < 8; ++i) kf[i] = 0.f;
+      }
+#pragma unroll
+      for (int g = 0; g < GT; ++g) {
+        float d = 0.f;
+#pragma unroll
+        for (int i = 0; i < 8; ++i) d = fmaf(qf[g][i], kf[i], d);
+#pragma unroll
+        for (int off = LPR / 2; off > 0; off >>= 1) d += __shfl_xor_sync(0xffffffffu, d, off);
+        sc[j][g] = r0 + r < e ? d : NEG;
+      }
+    }
+
+    // one running max per warp and head; rows of a step sit in lane groups
+#pragma unroll
+    for (int g = 0; g < GT; ++g) {
+      float mx = sc[0][g];
+#pragma unroll
+      for (int j = 1; j < STEPS; ++j) mx = fmaxf(mx, sc[j][g]);
+#pragma unroll
+      for (int off = LPR; off < 32; off <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float m_new = fmaxf(m[g], mx);
+      const float alpha = ex2(m[g] - m_new);
+      m[g] = m_new;
+      l[g] *= alpha;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) acc[g][i] *= alpha;
+    }
+#pragma unroll
+    for (int j = 0; j < STEPS; ++j) {
+      const int r = warp * (SUB / NWARPS) + j * RPS + lr;
+      float vf[8];
+      if (lane_on) {
+        unpack8(*reinterpret_cast<const uint4*>(vs + r * ROW_BYTES + lc * 16), vf);
+      } else {
+#pragma unroll
+        for (int i = 0; i < 8; ++i) vf[i] = 0.f;
+      }
+#pragma unroll
+      for (int g = 0; g < GT; ++g) {
+        const float p = ex2(sc[j][g] - m[g]);
+        l[g] += p;
+#pragma unroll
+        for (int i = 0; i < 8; ++i) acc[g][i] = fmaf(p, vf[i], acc[g][i]);
+      }
+    }
+    __syncthreads();   // this stage is refilled STAGES - 1 tiles on
+  }
+  cp_async_wait<0>();
+
+  // sum the row groups of each warp (they share the warp's max)
+#pragma unroll
+  for (int g = 0; g < GT; ++g) {
+#pragma unroll
+    for (int off = LPR; off < 32; off <<= 1) {
+      l[g] += __shfl_xor_sync(0xffffffffu, l[g], off);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) acc[g][i] += __shfl_xor_sync(0xffffffffu, acc[g][i], off);
+    }
+  }
+
+  // merge the warps through shared memory (the ring is free now)
+  __syncthreads();
+  float* red = reinterpret_cast<float*>(smem_ring);          // [warp][g][HD + 2]
+  constexpr int RED = HD + 2;
+  if (lr == 0 && lane_on) {
+#pragma unroll
+    for (int g = 0; g < GT; ++g)
+#pragma unroll
+      for (int i = 0; i < 8; ++i) red[(warp * GT + g) * RED + lc * 8 + i] = acc[g][i];
+  }
+  if (lane == 0) {
+#pragma unroll
+    for (int g = 0; g < GT; ++g) {
+      red[(warp * GT + g) * RED + HD] = m[g];
+      red[(warp * GT + g) * RED + HD + 1] = l[g];
+    }
+  }
+  __syncthreads();
+  for (int idx = tid; idx < ng * HD; idx += NTHREADS) {
+    const int g = idx / HD, d = idx % HD;
+    float M = NEG;
+#pragma unroll
+    for (int w = 0; w < NWARPS; ++w) M = fmaxf(M, red[(w * GT + g) * RED + HD]);
+    float A = 0.f, L = 0.f;
+#pragma unroll
+    for (int w = 0; w < NWARPS; ++w) {
+      const float f = ex2(red[(w * GT + g) * RED + HD] - M);
+      A = fmaf(red[(w * GT + g) * RED + d], f, A);
+      L = fmaf(red[(w * GT + g) * RED + HD + 1], f, L);
+    }
+    const int64_t row = ((int64_t)b * H + h0 + g) * nsplit + split;
+    part_acc[row * HD + d] = A;
+    if (d == 0) {
+      part_m[row] = M * LN2;          // natural-log units, as the combine kernel takes them
+      part_l[row] = L;
+    }
+  }
+}
+
+template <int HD, int GT>
+cudaError_t launch_split(const void* q, const void* k, const void* v, const int* kv_len,
+                         float* pm, float* pl, float* pa, int B, int T_len, int H, int K,
+                         int window, int chunk, int nsplit, cudaStream_t stream) {
+  constexpr int smem = STAGES * 2 * SUB * HD * 2;
+  static_assert(smem >= NWARPS * GT * (HD + 2) * 4, "merge area exceeds the ring");
+  static_assert(smem <= 48 * 1024, "above 48 KB needs cudaFuncSetAttribute");
+  auto kern = decode_split_kernel_bf16<HD, GT>;
+  const int G = H / K;
+  const int ngroups = (G + GT - 1) / GT;
+  kern<<<dim3(nsplit, B * K * ngroups), NTHREADS, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), kv_len, pm, pl, pa, T_len, H, K, window,
+      (float)(1.0 / sqrt((double)HD)) * LOG2E, chunk);
+  return cudaGetLastError();
+}
+
+// Query heads per block: the smallest of 1, 2, 4, 5, 8 that holds the
+// group, 8 where the group is larger (its heads then span several blocks).
+template <int HD>
+cudaError_t launch(const void* q, const void* k, const void* v, const int* kv_len, void* o,
+                   float* pm, float* pl, float* pa, int B, int T_len, int H, int K, int window,
+                   int chunk, cudaStream_t stream) {
+  if (chunk <= 0 || chunk % 16 != 0) return cudaErrorInvalidValue;
+  if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v) % 16 != 0) return cudaErrorInvalidValue;
+  const int nsplit = (T_len + chunk - 1) / chunk;
+  const int G = H / K;
+  cudaError_t err;
+  if (G == 1)
+    err = launch_split<HD, 1>(q, k, v, kv_len, pm, pl, pa, B, T_len, H, K, window, chunk, nsplit, stream);
+  else if (G == 2)
+    err = launch_split<HD, 2>(q, k, v, kv_len, pm, pl, pa, B, T_len, H, K, window, chunk, nsplit, stream);
+  else if (G <= 4)
+    err = launch_split<HD, 4>(q, k, v, kv_len, pm, pl, pa, B, T_len, H, K, window, chunk, nsplit, stream);
+  else if (G == 5)
+    err = launch_split<HD, 5>(q, k, v, kv_len, pm, pl, pa, B, T_len, H, K, window, chunk, nsplit, stream);
+  else
+    err = launch_split<HD, 8>(q, k, v, kv_len, pm, pl, pa, B, T_len, H, K, window, chunk, nsplit, stream);
+  if (err != cudaSuccess) return err;
+  decode_combine_kernel<__nv_bfloat16, HD><<<B * H, HD, 0, stream>>>(
+      pm, pl, pa, static_cast<__nv_bfloat16*>(o), nsplit);
+  return cudaGetLastError();
+}
+
+cudaError_t dispatch_hd(const void* q, const void* k, const void* v, const int* kv_len, void* o,
+                        float* pm, float* pl, float* pa, int B, int T_len, int H, int K, int hd,
+                        int window, int chunk, cudaStream_t st) {
+  switch (hd) {
+    case 64: return launch<64>(q, k, v, kv_len, o, pm, pl, pa, B, T_len, H, K, window, chunk, st);
+    case 112: return launch<112>(q, k, v, kv_len, o, pm, pl, pa, B, T_len, H, K, window, chunk, st);
+    case 128: return launch<128>(q, k, v, kv_len, o, pm, pl, pa, B, T_len, H, K, window, chunk, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace hopper
+
 template <typename T, int HD>
 cudaError_t launch(const void* q, const void* k, const void* v, const int* kv_len, void* o,
                    float* part_m, float* part_l, float* part_acc, int B, int T_len, int H,
@@ -208,26 +544,29 @@ extern "C" const char* cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-extern "C" int decode_attention_nsplit(int T_len) { return (T_len + CH - 1) / CH; }
-
-// dtype: 0 float32, 1 bfloat16. window < 0 means none.
-// q: (B,1,H,hd), k/v: (B,T,K,hd), o: (B,1,H,hd), all contiguous; kv_len: one
-// int32 on the device. part_m/part_l: B*H*nsplit floats, part_acc: that * hd.
+// dtype: 0 float32 (chunk must be CH = 64), 1 bfloat16 (chunk a multiple of
+// 16, from plan_splits). window < 0 means none. q: (B,1,H,hd), k/v:
+// (B,T,K,hd), o: (B,1,H,hd), all contiguous; kv_len: one int32 on the device.
+// part: one float32 buffer of B*H*nsplit*(hd + 2), nsplit = ceil(T / chunk):
+// m at 0, l at B*H*nsplit, acc at 2*B*H*nsplit.
 extern "C" int decode_attention_fwd(const void* q, const void* k, const void* v,
-                                    const void* kv_len, void* o, void* part_m, void* part_l,
-                                    void* part_acc, int B, int T_len, int H, int K, int hd,
-                                    int window, int dtype, void* stream) {
-  if (B <= 0 || T_len <= 0 || K <= 0 || H % K != 0) return (int)cudaErrorInvalidValue;
+                                    const void* kv_len, void* o, void* part, int B, int T_len,
+                                    int H, int K, int hd, int window, int chunk, int dtype,
+                                    void* stream) {
+  if (B <= 0 || T_len <= 0 || K <= 0 || H % K != 0 || chunk <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* kl = static_cast<const int*>(kv_len);
-  float* pm = static_cast<float*>(part_m);
-  float* pl = static_cast<float*>(part_l);
-  float* pa = static_cast<float*>(part_acc);
+  const int64_t n = (int64_t)B * H * ((T_len + chunk - 1) / chunk);
+  float* pm = static_cast<float*>(part);
+  float* pl = pm + n;
+  float* pa = pm + 2 * n;
   switch (dtype) {
-    case 0: return (int)dispatch_hd<float>(q, k, v, kl, o, pm, pl, pa, B, T_len, H, K, hd, window, st);
+    case 0:
+      if (chunk != CH) return (int)cudaErrorInvalidValue;
+      return (int)dispatch_hd<float>(q, k, v, kl, o, pm, pl, pa, B, T_len, H, K, hd, window, st);
     case 1:
-      return (int)dispatch_hd<__nv_bfloat16>(q, k, v, kl, o, pm, pl, pa, B, T_len, H, K, hd,
-                                             window, st);
+      return (int)hopper::dispatch_hd(q, k, v, kl, o, pm, pl, pa, B, T_len, H, K, hd, window,
+                                      chunk, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -4,13 +4,15 @@ and its plain PyTorch version.
 The kernel, ``csrc/decode_attention.cu``, replaces the TPU kernel
 ``src/repro/kernels/decode_attention.py:decode_attention``. On the H100 it is
 bound by the bytes of the valid cache prefix; its header says what the
-design does about that. ``kv_len`` is a device int32 tensor, so a step needs
-no value from the host. Unlike the TPU kernel it takes any cache length T.
+design does about that. ``kv_len`` is a device int32 tensor, and the split
+plan depends only on (B, K, T) and the card, so a step needs no value from
+the host. Unlike the TPU kernel it takes any cache length T.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -20,10 +22,38 @@ from .flash_attention import DTYPE_CODES, HEAD_DIMS
 
 _NEG = -2.0e38
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_SIGNATURES = {
-    "decode_attention_fwd": [_P] * 8 + [_I] * 7 + [_P],
-    "decode_attention_nsplit": [_I],
-}
+# q, k, v, kv_len, out, scratch; B, T, H, K, hd, window, chunk, dtype; stream
+_SIGNATURES = {"decode_attention_fwd": [_P] * 6 + [_I] * 8 + [_P]}
+F32_CHUNK = 64          # the float32 kernel's fixed chunk (CH in the source)
+BLOCKS_PER_SM = 4
+
+
+def plan_splits(B: int, K: int, T: int, sm_count: int) -> tuple[int, int]:
+    """(chunk, nsplit) for the bf16 split kernel: cache rows per block, a
+    multiple of 16, so that B*K*nsplit is about ``BLOCKS_PER_SM`` blocks a
+    SM. Depends only on the shapes and the card, never on ``kv_len``."""
+    want = max(1, (BLOCKS_PER_SM * sm_count) // (B * K))
+    chunk = 16 * -(-T // (16 * want))
+    return chunk, -(-T // chunk)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _fwd_args(q, k, v, kv_len, out, scratch, window, chunk, stream) -> tuple:
+    """The arguments of ``decode_attention_fwd``, in its order."""
+    B, _, H, hd = q.shape
+    T, K = k.shape[1], k.shape[2]
+    return (q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(), out.data_ptr(),
+            scratch.data_ptr(), B, T, H, K, hd, -1 if window is None else int(window), chunk,
+            DTYPE_CODES[q.dtype], stream)
+
+
+def scratch_numel(B: int, H: int, hd: int, nsplit: int) -> int:
+    """Floats of the partials buffer: m and l (B*H*nsplit each), then acc."""
+    return B * H * nsplit * (hd + 2)
 
 
 def decode_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -48,7 +78,8 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                           kv_len: torch.Tensor, window: Optional[int] = None) -> torch.Tensor:
     """Launch the CUDA kernels (split + combine) on PyTorch's current stream.
 
-    ``kv_len``: an int32 tensor of one element on q's device."""
+    ``kv_len``: an int32 tensor of one element on q's device. bf16 splits
+    the cache as ``plan_splits`` says, float32 in chunks of ``F32_CHUNK``."""
     if not (q.is_cuda and k.is_cuda and v.is_cuda):
         raise ValueError("decode_attention_cuda takes CUDA tensors")
     if q.dim() != 4 or q.shape[1] != 1 or k.dim() != 4 or k.shape != v.shape:
@@ -63,20 +94,21 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"dtypes {q.dtype}/{k.dtype}/{v.dtype} not supported")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("decode_attention_cuda needs contiguous q, k and v")
+    if (q.data_ptr() | k.data_ptr() | v.data_ptr()) % 16:
+        raise ValueError("decode_attention_cuda needs q, k and v on 16-byte boundaries")
     if (not isinstance(kv_len, torch.Tensor) or kv_len.dtype != torch.int32
             or kv_len.numel() != 1 or kv_len.device != q.device):
         raise ValueError("kv_len must be a one-element int32 tensor on q's device")
     lib = build.library("decode_attention", _SIGNATURES)
-    nsplit = lib.decode_attention_nsplit(T)
+    if q.dtype == torch.bfloat16:
+        chunk, nsplit = plan_splits(B, K, T, _sm_count(q.device.index))
+    else:
+        chunk, nsplit = F32_CHUNK, -(-T // F32_CHUNK)
     out = torch.empty_like(q)
-    part_m = torch.empty(B * H * nsplit, dtype=torch.float32, device=q.device)
-    part_l = torch.empty_like(part_m)
-    part_acc = torch.empty(B * H * nsplit * hd, dtype=torch.float32, device=q.device)
+    scratch = torch.empty(scratch_numel(B, H, hd, nsplit), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
-        err = lib.decode_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(), out.data_ptr(),
-            part_m.data_ptr(), part_l.data_ptr(), part_acc.data_ptr(),
-            B, T, H, K, hd, -1 if window is None else int(window), DTYPE_CODES[q.dtype],
-            torch.cuda.current_stream(q.device).cuda_stream)
+        err = lib.decode_attention_fwd(*_fwd_args(
+            q, k, v, kv_len, out, scratch, window, chunk,
+            torch.cuda.current_stream(q.device).cuda_stream))
     build.check(lib, err, "decode_attention_fwd")
     return out

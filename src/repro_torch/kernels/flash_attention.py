@@ -56,6 +56,8 @@ def _check(q, k, v):
         raise ValueError(f"dtypes {q.dtype}/{k.dtype}/{v.dtype} not supported")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention_cuda needs contiguous q, k and v")
+    if (q.data_ptr() | k.data_ptr() | v.data_ptr()) % 16:
+        raise ValueError("flash_attention_cuda needs q, k and v on 16-byte boundaries")
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

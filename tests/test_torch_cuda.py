@@ -1,6 +1,8 @@
 """Each hand-written kernel against its plain version on a CUDA card, at the
 tolerances of tests/test_kernels.py, for the attention shapes of qwen3-14b
-(GQA, hd 128) and zamba2-7b (MHA, hd 112) and the SSD sweep. Every test here
+(GQA, hd 128) and zamba2-7b (MHA, hd 112), a sweep of head dims, group sizes,
+lengths and windows over both attention kernels (bf16 runs the wgmma/TMA and
+cp.async kernels, float32 the FMA kernels), and the SSD sweep. Every test here
 carries the ``cuda`` marker and skips without a card. The file imports no JAX,
 so it runs where only PyTorch is installed:
 
@@ -14,8 +16,8 @@ torch = pytest.importorskip("torch")
 import numpy as np
 
 from repro_torch.kernels import ops
-from repro_torch.kernels.decode_attention import decode_attention_plain
-from repro_torch.kernels.flash_attention import flash_attention_plain
+from repro_torch.kernels.decode_attention import decode_attention_cuda, decode_attention_plain
+from repro_torch.kernels.flash_attention import flash_attention_cuda, flash_attention_plain
 from repro_torch.kernels.rmsnorm import rmsnorm_plain
 from repro_torch.kernels.ssd_scan import ssd_intra_chunk_plain
 
@@ -57,6 +59,44 @@ def test_kernels_match_plain_on_card(cuda_card, dtype):
                 ops.decode_attention(q[:, :1].contiguous(), k, v, kv_len=kl, window=window),
                 decode_attention_plain(q[:, :1], k, v, kv_len=kl, window=window),
                 atol=tol, rtol=tol)
+
+
+ATTN_SWEEP = pytest.mark.parametrize("hd", [64, 112, 128])
+ATTN_G = pytest.mark.parametrize("G", [1, 5, 8])
+ATTN_S = pytest.mark.parametrize("S", [1, 17, 64, 65, 300])
+ATTN_WINDOW = pytest.mark.parametrize("window", [None, 64])
+ATTN_DTYPE = pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+
+
+@ATTN_DTYPE
+@ATTN_WINDOW
+@ATTN_S
+@ATTN_G
+@ATTN_SWEEP
+def test_flash_kernel_sweep_on_card(cuda_card, hd, G, S, window, dtype):
+    """Ragged q and kv tiles (S 17, 65, 300), one row, GQA and MHA, hd 112's
+    padded boxes; 2 kv heads, so H = 2 G."""
+    td, tol = DTYPES[dtype], TOL[dtype]
+    q, k, v = _card_inputs(cuda_card, [(2, S, 2 * G, hd), (2, S, 2, hd), (2, S, 2, hd)], td, 5)
+    torch.testing.assert_close(flash_attention_cuda(q, k, v, window=window),
+                               flash_attention_plain(q, k, v, window=window),
+                               atol=tol, rtol=tol)
+
+
+@ATTN_DTYPE
+@ATTN_WINDOW
+@ATTN_S
+@ATTN_G
+@ATTN_SWEEP
+def test_decode_kernel_sweep_on_card(cuda_card, hd, G, S, window, dtype):
+    """kv_len = S in a cache of S + 7 rows (an unused ragged tail)."""
+    td, tol = DTYPES[dtype], TOL[dtype]
+    T = S + 7
+    q, k, v = _card_inputs(cuda_card, [(2, 1, 2 * G, hd), (2, T, 2, hd), (2, T, 2, hd)], td, 6)
+    kl = torch.tensor(S, dtype=torch.int32, device=cuda_card)
+    torch.testing.assert_close(decode_attention_cuda(q, k, v, kv_len=kl, window=window),
+                               decode_attention_plain(q, k, v, kv_len=kl, window=window),
+                               atol=tol, rtol=tol)
 
 
 @pytest.mark.parametrize("shape", [(2, 4, 32, 8, 16, 16), (1, 2, 64, 4, 64, 64),

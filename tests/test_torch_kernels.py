@@ -134,3 +134,91 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         decode_attention_cuda(x[:, :1], x, x, kv_len=torch.tensor(1, dtype=torch.int32))
     with pytest.raises(ValueError, match="CUDA tensors"):
         ssd_intra_chunk_cuda(x, x, x, x[..., None])
+
+
+# -- the decode kernel's split plan and argument packing (no card needed) --------
+SPLIT_SHAPES = [(B, K, T, sm) for B in (1, 8, 64) for K in (1, 8, 32)
+                for T in (1, 17, 544, 4096) for sm in (1, 132)]
+
+
+@pytest.mark.parametrize("B,K,T,sm", SPLIT_SHAPES)
+def test_plan_splits_partitions_the_cache(B, K, T, sm):
+    """Chunks are multiples of 16 and cover every column of [0, T) exactly
+    once; the card is filled (B*K*nsplit >= SMs) unless T is too short."""
+    from repro_torch.kernels.decode_attention import plan_splits
+    chunk, nsplit = plan_splits(B, K, T, sm)
+    assert chunk % 16 == 0 and chunk > 0
+    covered = np.zeros(T, np.int64)
+    for s in range(nsplit):
+        covered[s * chunk:min((s + 1) * chunk, T)] += 1
+    assert (covered == 1).all()
+    assert (nsplit - 1) * chunk < T <= nsplit * chunk
+    assert B * K * nsplit >= sm or nsplit == -(-T // 16)
+
+
+def test_plan_splits_main_shapes_and_no_kv_len():
+    """The split counts the kernel's note gives at the serving shapes (132
+    SMs), and a plan that no kv_len can reach: it takes only (B, K, T, SMs)."""
+    import inspect
+    from repro_torch.kernels.decode_attention import plan_splits
+    assert plan_splits(8, 32, 544, 132) == (272, 2)    # zamba2-7b: B*K = 256
+    assert plan_splits(8, 8, 544, 132) == (80, 7)      # qwen3-14b: B*K = 64
+    assert list(inspect.signature(plan_splits).parameters) == ["B", "K", "T", "sm_count"]
+
+
+def _c_params(source: str, fn: str) -> list[tuple[str, str]]:
+    """(type, name) of each parameter of ``extern "C" int fn(...)`` in a
+    csrc file."""
+    import re
+    from pathlib import Path
+    text = (Path(__file__).resolve().parents[1] / "src/repro_torch/csrc" / source).read_text()
+    m = re.search(r'extern "C" int ' + fn + r"\(([^)]*)\)", text)
+    assert m, f"{fn} not found in {source}"
+    out = []
+    for p in m.group(1).split(","):
+        p = " ".join(p.split())
+        name = re.findall(r"\w+$", p)[0]
+        out.append((p[: -len(name)].strip(), name))
+    return out
+
+
+def _ctype(c_type: str):
+    import ctypes
+    return ctypes.c_void_p if c_type.endswith("*") else {"int": ctypes.c_int}[c_type]
+
+
+@pytest.mark.parametrize("source,fn,module", [
+    ("decode_attention.cu", "decode_attention_fwd", "decode_attention"),
+    ("flash_attention.cu", "flash_attention_fwd", "flash_attention"),
+])
+def test_ctypes_signatures_match_c(source, fn, module):
+    """``_SIGNATURES`` gives ctypes the C entry point's argument types."""
+    import importlib
+    mod = importlib.import_module(f"repro_torch.kernels.{module}")
+    assert mod._SIGNATURES[fn] == [_ctype(t) for t, _ in _c_params(source, fn)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_decode_argument_packing_matches_c(dtype):
+    """The wrapper's packed arguments sit where the C signature names them:
+    the chunk length, the one scratch buffer sized for m, l and acc, and no
+    value that depends on kv_len beyond its pointer."""
+    from repro_torch.kernels import decode_attention as da
+    B, T, H, K, hd = 2, 100, 10, 2, 112
+    q = torch.zeros(B, 1, H, hd, dtype=dtype)
+    k = torch.zeros(B, T, K, hd, dtype=dtype)
+    chunk, nsplit = da.plan_splits(B, K, T, 132)
+    scratch = torch.empty(da.scratch_numel(B, H, hd, nsplit))
+    assert scratch.numel() == 2 * B * H * nsplit + B * H * nsplit * hd
+    out = torch.empty_like(q)
+    packs = [da._fwd_args(q, k, k, torch.tensor(n, dtype=torch.int32), out, scratch, 64, chunk, 7)
+             for n in (1, 99)]
+    names = [n for _, n in _c_params("decode_attention.cu", "decode_attention_fwd")]
+    assert len(packs[0]) == len(names) == len(da._SIGNATURES["decode_attention_fwd"])
+    got = dict(zip(names, packs[0]))
+    assert (got["B"], got["T_len"], got["H"], got["K"], got["hd"]) == (B, T, H, K, hd)
+    assert (got["window"], got["chunk"], got["stream"]) == (64, chunk, 7)
+    assert got["dtype"] == da.DTYPE_CODES[dtype]
+    assert got["part"] == scratch.data_ptr() and got["o"] == out.data_ptr()
+    differ = [n for n, a, b in zip(names, *packs) if a != b]
+    assert differ == ["kv_len"]

@@ -257,6 +257,8 @@ def kernel_cases(torch):
     for (Bs, nc, Q, H, N, P), la_kind, main in [
             ((2, 4, 32, 8, 16, 16), "small", None), ((1, 2, 64, 4, 64, 64), "small", None),
             ((1, 1, 128, 2, 32, 64), "small", None),
+            # edges: one mma tile; Q, N and P off the mma tile
+            ((1, 1, 16, 1, 8, 8), "small", None), ((1, 2, 40, 3, 4, 12), "small", None),
             ((B, PROMPT // 128, 128, 112, 64, 64), "small", ZAMBA),
             ((B, PROMPT // 128, 128, 112, 64, 64), "model", None)]:
         def make(dtype, shape=(Bs, nc, Q, H, N, P), la_kind=la_kind):

@@ -13,111 +13,178 @@
 //
 // What bounds it on the H100: operations. Per (chunk, head) it does about
 // Q^2 P + 2 Q P N flops on Q P + Q floats in and Q P + P N + 1 out; at the
-// zamba2-7b prefill shape (Q 128, N = P = 64) that is ~26 flop/byte against
-// the ~20 flop/byte ridge of non-tensor float32 (67 TFLOP/s, 3.35 TB/s).
+// zamba2-7b prefill shape (Q 128, N = P = 64) that is ~26 flop/byte, above
+// the ~20 flop/byte ridge of float32 outside the tensor cores (67 TFLOP/s,
+// 3.35 TB/s).
 //
-// Design: one block of 512 threads per (b*chunk, group of up to 16 heads;
-// the wrapper picks the group size that fills the SMs in the fewest waves).
-// C . B^T is the same for every head (one B/C group), so the block builds it
-// once in shared memory (transposed, CBt[s][t]) and serves its heads from
-// it. la and x are read in their natural (B, nc, Q, H[, P]) layouts, with no
-// transposes. Per head: L by one warp's scan in float64, so that L_t - L_s
-// keeps its digits when L reaches ~-100 over a chunk (a float32 cumsum
-// loses ~4e-5 there, and exp turns that into relative error); then
-// Mt[s][t] = exp(L_t - L_s) * CBt[s][t] for s <= t only (exp never sees a
-// masked exponent, which is positive and can overflow), zero above the
-// diagonal. Threads 0-255 compute y = M . x in 4 x 4 register tiles, each
-// thread a pair of row tiles mirrored about the middle so that every thread
-// runs Q + 4 steps and the upper triangle is skipped; threads 256-511
-// compute the state in 4 x 4 tiles at the same time. Every step of both
-// loads two float4s from shared memory for 16 FMAs. Shared memory (~210 KB
-// at the main shape) holds B, CBt, Mt, x and L: one block per SM. Plain
-// float32 FMAs, so TF32 never enters; mma/wgmma and TMA are later work.
+// Design: the three products (C . B^T, M . x and (w * x)^T . B) run on the
+// tensor cores, mma.sync m16n8k8 with TF32 operands. TF32 keeps 10 mantissa
+// bits, too few for the 2e-4 the kernel is held to, so every operand is
+// split in registers into hi = tf32(a) and lo = tf32(a - hi) and each tile
+// accumulates lo.hi + hi.lo + hi.hi in float32 (3xTF32): the dropped lo.lo
+// term and the rounding of lo leave ~1e-6 relative, float32's accuracy at a
+// third of the TF32 rate.
+//
+// One block per (b*chunk, group of up to 16 heads; the wrapper picks the
+// group size that fills the SMs in the fewest waves). C . B^T is the same
+// for every head, so the block builds it once (lower 16 x 8 tiles only) into
+// a shared tile CB[t][s] whose row stride (Q + 4) keeps fragment loads free
+// of bank conflicts. L is scanned in float64, one warp a head, so that
+// L_t - L_s keeps its digits when L reaches ~-100 over a chunk; the end
+// weights w_s = exp(L_{Q-1} - L_s) are taken from it at once. The block's
+// 16 warps then form two slots of 8 that take the group's heads in turns
+// and synchronise only among themselves (named barriers), so one slot's x
+// load overlaps the other's products. In a slot, four warps own the 16-row
+// strips of y, strip r paired with strip Q/16-1-r so that each does the
+// same work, over all P columns: M is never stored, a warp builds its A
+// fragment from CB and L, exp(L_t - L_s) * CB[t][s] for s <= t and zero
+// above the diagonal (exp never sees a masked, positive exponent), so each
+// M entry is exponentiated once a head and k-blocks above the diagonal are
+// skipped. The other four warps own 16-row strips of the state, applying
+// w_s while they form the A fragment from x. Q is padded to 16 and N and P
+// to 8 with zeros in shared memory. Shared memory (~200 KB at the main
+// shape: CB, B, two x tiles, L and w) allows one block per SM; where the
+// two x tiles do not fit, one slot of 8 warps runs.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int NTHREADS = 512;
-constexpr int HALF = NTHREADS / 2;
+constexpr int SLOT_THREADS = 256;          // 8 warps: 4 for y, 4 for the state
+constexpr int MAX_SLOTS = 2;
 constexpr int MAX_Q = 128;
-constexpr int MAX_HG = NTHREADS / 32;      // one warp scans one head's L
+constexpr int MAX_HG = 16;
 constexpr int MAX_SMEM = 232448;
+constexpr int NT = 8;                      // n-tiles of 8 a warp accumulates at once
 
-__host__ __device__ inline int round4(int n) { return (n + 3) & ~3; }
+__host__ __device__ inline int round_up(int n, int m) { return (n + m - 1) / m * m; }
+
+// x and B are read as mma operands along their rows (k = s, column = g),
+// which is free of bank conflicts when the row stride is 8 or 24 mod 32.
+__host__ __device__ inline int stride_k_major(int n) {
+  const int r = round_up(n, 8);
+  return r % 16 ? r : r + 8;
+}
 
 // Shared-memory layout in floats; every region starts on a 16-byte boundary.
 struct Layout {
-  int ldm;       // row stride of CBt and Mt: Q + 4 (float4 rows)
-  int ldt;       // row stride of the transposed C tile: Q + 1
-  int off_cb, off_m, off_x, off_l, off_w, total;
+  int Qp, Np, Pp;   // Q padded to 16; N and P to 8
+  int ldc;          // CB[t][s]: Qp + 4
+  int ldb, ldx;     // B[s][n], x[s][p]: 8 or 24 mod 32
+  int ldcc;         // C[t][n] while CB is built: 4 mod 8
+  int off_b, off_x, off_l, off_w, total;
 };
 
-__host__ __device__ inline Layout layout(int Q, int N, int P, int HG) {
+__host__ __device__ inline Layout layout(int Q, int N, int P, int HG, int slots) {
   Layout s;
-  s.ldm = Q + 4;
-  s.ldt = Q + 1;
-  const int m_words = Q * s.ldm;
-  const int ct_words = N * s.ldt;                 // C^T while CBt is built
-  s.off_cb = round4(Q * N);                       // B, row-major, first
-  s.off_m = s.off_cb + m_words;
-  s.off_x = s.off_m + round4(m_words > ct_words ? m_words : ct_words);
-  s.off_l = s.off_x + round4(Q * P);
-  s.off_w = s.off_l + round4(2 * HG * Q);         // L in float64
-  s.total = s.off_w + round4(Q);
+  s.Qp = round_up(Q, 16);
+  s.Np = round_up(N, 8);
+  s.Pp = round_up(P, 8);
+  s.ldc = s.Qp + 4;
+  s.ldb = stride_k_major(N);
+  s.ldx = stride_k_major(P);
+  s.ldcc = s.Np + 4;
+  const int x_words = slots * s.Qp * s.ldx;
+  const int c_words = s.Qp * s.ldcc;              // C, only while CB is built
+  s.off_b = round_up(s.Qp * s.ldc, 4);
+  s.off_x = s.off_b + round_up(s.Qp * s.ldb, 4);
+  s.off_l = s.off_x + round_up(x_words > c_words ? x_words : c_words, 4);
+  s.off_w = s.off_l + 2 * HG * s.Qp;              // L in float64
+  s.total = s.off_w + HG * s.Qp;
   return s;
 }
 
-__global__ void __launch_bounds__(NTHREADS, 1)
+// hi = tf32(a), lo = tf32(a - hi), both rounded to nearest.
+__device__ __forceinline__ void split(float a, uint32_t& hi, uint32_t& lo) {
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(hi) : "f"(a));
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(lo) : "f"(a - __uint_as_float(hi)));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// d += a . b in 3xTF32 from the float32 fragments a (16 x 8, row-major
+// m16n8k8 A layout) and b (8 x 8, its B layout).
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4], const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4], const float (&b)[2]) {
+  uint32_t bh[2], bl[2];
+  split(b[0], bh[0], bl[0]);
+  split(b[1], bh[1], bl[1]);
+  mma_tf32(d, al, bh);
+  mma_tf32(d, ah, bl);
+  mma_tf32(d, ah, bh);
+}
+
+__device__ __forceinline__ void split4(const float (&a)[4], uint32_t (&hi)[4],
+                                       uint32_t (&lo)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) split(a[i], hi[i], lo[i]);
+}
+
+__device__ __forceinline__ void slot_barrier(int slot) {
+  asm volatile("bar.sync %0, %1;" ::"r"(slot + 1), "r"(SLOT_THREADS) : "memory");
+}
+
+// Copy a Q x n float row-major tile (n % 4 == 0) into shared memory with row
+// stride ld, zero-filling rows [Q, Qp) and columns [n, round_up(n, 8)).
+__device__ __forceinline__ void load_tile(float* dst, int ld, const float* src, int64_t src_ld,
+                                          int Q, int Qp, int n, int tid, int nthreads) {
+  const int c4 = round_up(n, 8) / 4;
+  for (int i = tid; i < Qp * c4; i += nthreads) {
+    const int t = i / c4, c = i % c4;
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (t < Q && 4 * c < n) v = reinterpret_cast<const float4*>(src + t * src_ld)[c];
+    *reinterpret_cast<float4*>(dst + t * ld + 4 * c) = v;
+  }
+}
+
+__global__ void __launch_bounds__(SLOT_THREADS * MAX_SLOTS, 1)
 ssd_intra_chunk_kernel(const float* __restrict__ la, const float* __restrict__ C,
                        const float* __restrict__ Bm, const float* __restrict__ x,
                        float* __restrict__ y, float* __restrict__ st,
                        float* __restrict__ tot, int Q, int H, int N, int P, int HG) {
   extern __shared__ __align__(16) float smem[];
-  const Layout lay = layout(Q, N, P, HG);
-  const int ldm = lay.ldm, ldt = lay.ldt;
-  float* Bs = smem;                                   // Q x N
-  float* CBt = smem + lay.off_cb;                     // Q x ldm, [s][t] = B_s . C_t
-  float* Mt = smem + lay.off_m;                       // Q x ldm, [s][t]
-  float* Ct = Mt;                                     // N x ldt, only while CBt is built
-  float* xs = smem + lay.off_x;                       // Q x P
-  double* Ls = reinterpret_cast<double*>(smem + lay.off_l);   // HG x Q
-  float* ws = smem + lay.off_w;                       // Q
+  const int slots = blockDim.x / SLOT_THREADS;
+  const Layout lay = layout(Q, N, P, HG, slots);
+  const int Qp = lay.Qp, ldc = lay.ldc, ldb = lay.ldb, ldx = lay.ldx;
+  float* CB = smem;                                   // Qp x ldc, [t][s] = C_t . B_s
+  float* Bs = smem + lay.off_b;                       // Qp x ldb
+  float* Cs = smem + lay.off_x;                       // Qp x ldcc, only while CB is built
+  double* Ls = reinterpret_cast<double*>(smem + lay.off_l);   // HG x Qp
+  float* Ws = smem + lay.off_w;                       // HG x Qp
 
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int64_t bc = blockIdx.x;       // b * nc + chunk
+  const int tid = threadIdx.x, nthreads = blockDim.x;
+  const int warp = tid >> 5, lane = tid & 31, nwarps = nthreads >> 5;
+  const int gq = lane >> 2, tq = lane & 3;            // mma fragment row / column
+  const int64_t bc = blockIdx.x;                      // b * nc + chunk
   const int h0 = blockIdx.y * HG;
   const int hg = min(HG, H - h0);
 
-  // 1. this group's la columns, the chunk's B and C (C transposed).
-  for (int i = tid; i < Q * hg; i += NTHREADS) {
+  // 1. this group's la columns (zero past Q), the chunk's B and C.
+  for (int i = tid; i < Qp * hg; i += nthreads) {
     const int t = i / hg, g = i % hg;
-    Ls[g * Q + t] = (double)la[(bc * Q + t) * H + h0 + g];
+    Ls[g * Qp + t] = t < Q ? (double)la[(bc * Q + t) * H + h0 + g] : 0.0;
   }
-  const float4* C4 = reinterpret_cast<const float4*>(C + bc * Q * N);
-  const float4* B4 = reinterpret_cast<const float4*>(Bm + bc * Q * N);
-  for (int i = tid; i < Q * N / 4; i += NTHREADS) {
-    reinterpret_cast<float4*>(Bs)[i] = B4[i];
-    const float4 c = C4[i];
-    const int t = (4 * i) / N, n = (4 * i) % N;
-    Ct[(n + 0) * ldt + t] = c.x;
-    Ct[(n + 1) * ldt + t] = c.y;
-    Ct[(n + 2) * ldt + t] = c.z;
-    Ct[(n + 3) * ldt + t] = c.w;
-  }
+  load_tile(Bs, ldb, Bm + bc * Q * N, N, Q, Qp, N, tid, nthreads);
+  load_tile(Cs, lay.ldcc, C + bc * Q * N, N, Q, Qp, N, tid, nthreads);
   __syncthreads();
 
   // 2. L = cumsum(la) in float64, one warp a head: each lane sums a run of
-  // rows in order, then the lanes' totals are scanned with shuffles.
-  if (warp < hg) {
-    double* Lh = Ls + warp * Q;
-    const int per = (Q + 31) / 32;
+  // rows in order, then the lanes' totals are scanned with shuffles. Then
+  // tot and the end weights w_s = exp(L_{Q-1} - L_s).
+  for (int g = warp; g < hg; g += nwarps) {
+    double* Lh = Ls + g * Qp;
+    const int per = (Qp + 31) / 32;
     const int lo = lane * per;
     double run = 0.0;
     for (int k = 0; k < per; ++k)
-      if (lo + k < Q) {
+      if (lo + k < Qp) {
         run += Lh[lo + k];
         Lh[lo + k] = run;
       }
@@ -130,122 +197,139 @@ ssd_intra_chunk_kernel(const float* __restrict__ la, const float* __restrict__ C
     double excl = __shfl_up_sync(0xffffffffu, incl, 1);
     if (lane == 0) excl = 0.0;
     for (int k = 0; k < per; ++k)
-      if (lo + k < Q) Lh[lo + k] += excl;
+      if (lo + k < Qp) Lh[lo + k] += excl;
     __syncwarp();
-    if (lane == 0) tot[bc * H + h0 + warp] = (float)Lh[Q - 1];
+    const double Lend = Lh[Q - 1];
+    if (lane == 0) tot[bc * H + h0 + g] = (float)Lend;
+    for (int k = 0; k < per; ++k)
+      if (lo + k < Qp) Ws[g * Qp + lo + k] = expf((float)(Lend - Lh[lo + k]));
   }
 
-  // 3. CBt = B . C^T once for the group: rows (s) ty + 16 i, columns (t)
-  // tx + 32 j.
+  // 3. CB = C . B^T once for the group, on mma: the 16 x 8 tiles (i, j) on
+  // or below the diagonal (j <= 2 i + 1), spread over all warps.
   {
-    const int ty = warp, tx = lane;
-    float acc[MAX_Q / 16][MAX_Q / 32];
-#pragma unroll
-    for (int i = 0; i < MAX_Q / 16; ++i)
-#pragma unroll
-      for (int j = 0; j < MAX_Q / 32; ++j) acc[i][j] = 0.f;
-    for (int n = 0; n < N; ++n) {
-      float bv[MAX_Q / 16], cv[MAX_Q / 32];
-#pragma unroll
-      for (int i = 0; i < MAX_Q / 16; ++i)
-        bv[i] = ty + 16 * i < Q ? Bs[(ty + 16 * i) * N + n] : 0.f;
-#pragma unroll
-      for (int j = 0; j < MAX_Q / 32; ++j)
-        cv[j] = tx + 32 * j < Q ? Ct[n * ldt + tx + 32 * j] : 0.f;
-#pragma unroll
-      for (int i = 0; i < MAX_Q / 16; ++i)
-#pragma unroll
-        for (int j = 0; j < MAX_Q / 32; ++j) acc[i][j] = fmaf(bv[i], cv[j], acc[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < MAX_Q / 16; ++i)
-#pragma unroll
-      for (int j = 0; j < MAX_Q / 32; ++j) {
-        const int s = ty + 16 * i, t = tx + 32 * j;
-        if (s < Q && t < Q) CBt[s * ldm + t] = acc[i][j];
+    const int ns = Qp / 16, nkb = lay.Np / 8;
+    for (int q = warp; q < ns * (ns + 1); q += nwarps) {
+      int i = 0;
+      while ((i + 1) * (i + 2) <= q) ++i;
+      const int j = q - i * (i + 1);
+      const float* c0 = Cs + (16 * i + gq) * lay.ldcc + tq;
+      const float* b0 = Bs + (8 * j + gq) * ldb + tq;
+      float acc[4] = {0.f, 0.f, 0.f, 0.f};
+      for (int kb = 0; kb < nkb; ++kb) {
+        const float a[4] = {c0[8 * kb], c0[8 * lay.ldcc + 8 * kb], c0[8 * kb + 4],
+                            c0[8 * lay.ldcc + 8 * kb + 4]};
+        const float b[2] = {b0[8 * kb], b0[8 * kb + 4]};
+        uint32_t ah[4], al[4];
+        split4(a, ah, al);
+        mma_3xtf32(acc, ah, al, b);
       }
+      float* out = CB + (16 * i + gq) * ldc + 8 * j + 2 * tq;
+      *reinterpret_cast<float2*>(out) = make_float2(acc[0], acc[1]);
+      *reinterpret_cast<float2*>(out + 8 * ldc) = make_float2(acc[2], acc[3]);
+    }
   }
-  __syncthreads();   // CBt done; the Mt region (C^T) may be overwritten
+  __syncthreads();   // CB, L and w are done; the C region becomes the x tiles
 
-  // 4. each head of the group.
-  const int PT = P / 4, NT4 = N / 4, QT = Q / 4;
-  const float4* xs4 = reinterpret_cast<const float4*>(xs);
-  for (int g = 0; g < hg; ++g) {
+  // 4. each slot takes heads slot, slot + slots, ... of the group.
+  const int slot = tid / SLOT_THREADS, stid = tid % SLOT_THREADS;
+  const int sw = warp % (SLOT_THREADS / 32);          // warp in the slot: 0-3 y, 4-7 state
+  float* xs = smem + lay.off_x + slot * Qp * ldx;     // Qp x ldx
+  const int ns = Qp / 16;
+  for (int g = slot; g < hg; g += slots) {
     const int h = h0 + g;
-    const double* Lh = Ls + g * Q;
-    for (int i = tid; i < Q * PT; i += NTHREADS) {
-      const int t = i / PT, c = i % PT;
-      reinterpret_cast<float4*>(xs)[i] =
-          reinterpret_cast<const float4*>(x + ((bc * Q + t) * H + h) * P)[c];
-    }
-    for (int i = tid; i < Q * Q; i += NTHREADS) {
-      const int s = i / Q, t = i % Q;
-      Mt[s * ldm + t] = s <= t ? expf((float)(Lh[t] - Lh[s])) * CBt[s * ldm + t] : 0.f;
-    }
-    for (int s = tid; s < Q; s += NTHREADS) ws[s] = expf((float)(Lh[Q - 1] - Lh[s]));
-    __syncthreads();
+    load_tile(xs, ldx, x + (bc * Q * H + h) * P, (int64_t)H * P, Q, Qp, P, stid,
+              SLOT_THREADS);
+    slot_barrier(slot);
 
-    if (tid < HALF) {
-      // y = M . x: row tiles tp and QT-1-tp, column tile tc.
-      for (int j = tid; j < (QT / 2) * PT; j += HALF) {
-        const int tc = j % PT, tp = j / PT;
+    if (sw < 4) {
+      // y = M . x: strips pi and ns-1-pi, 16 rows each, over all P columns.
+      const double* Lh = Ls + g * Qp;
+      for (int pi = sw; pi < (ns + 1) / 2; pi += 4) {
         for (int half = 0; half < 2; ++half) {
-          const int r0 = 4 * (half ? QT - 1 - tp : tp);
-          float acc[4][4];
+          const int r = half ? ns - 1 - pi : pi;
+          if (half && r == pi) break;
+          const int t0 = 16 * r + gq, t1 = t0 + 8;
+          const double L0 = Lh[t0], L1 = Lh[t1];
+          const float* cb0 = CB + t0 * ldc + tq;
+          for (int n0 = 0; n0 < lay.Pp / 8; n0 += NT) {
+            float acc[NT][4];
 #pragma unroll
-          for (int a = 0; a < 4; ++a)
+            for (int j = 0; j < NT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+            for (int kb = 0; kb < 2 * r + 2; ++kb) {
+              const int s0 = 8 * kb + tq, s1 = s0 + 4;
+              const double Ls0 = Lh[s0], Ls1 = Lh[s1];
+              const float* cb = cb0 + 8 * kb;
+              const float m[4] = {
+                  s0 <= t0 ? cb[0] * expf((float)(L0 - Ls0)) : 0.f,
+                  s0 <= t1 ? cb[8 * ldc] * expf((float)(L1 - Ls0)) : 0.f,
+                  s1 <= t0 ? cb[4] * expf((float)(L0 - Ls1)) : 0.f,
+                  s1 <= t1 ? cb[8 * ldc + 4] * expf((float)(L1 - Ls1)) : 0.f};
+              uint32_t ah[4], al[4];
+              split4(m, ah, al);
+              const float* xp = xs + s0 * ldx + 8 * n0 + gq;
 #pragma unroll
-            for (int b = 0; b < 4; ++b) acc[a][b] = 0.f;
-#pragma unroll 4
-          for (int s = 0; s < r0 + 4; ++s) {
-            const float4 xv = xs4[s * PT + tc];
-            const float4 mv = *reinterpret_cast<const float4*>(Mt + s * ldm + r0);
-            const float m[4] = {mv.x, mv.y, mv.z, mv.w};
+              for (int j = 0; j < NT; ++j)
+                if (n0 + j < lay.Pp / 8) {
+                  const float b[2] = {xp[8 * j], xp[4 * ldx + 8 * j]};
+                  mma_3xtf32(acc[j], ah, al, b);
+                }
+            }
 #pragma unroll
-            for (int a = 0; a < 4; ++a) {
-              acc[a][0] = fmaf(m[a], xv.x, acc[a][0]);
-              acc[a][1] = fmaf(m[a], xv.y, acc[a][1]);
-              acc[a][2] = fmaf(m[a], xv.z, acc[a][2]);
-              acc[a][3] = fmaf(m[a], xv.w, acc[a][3]);
+            for (int j = 0; j < NT; ++j) {
+              const int p = 8 * (n0 + j) + 2 * tq;
+              if (p >= P) continue;
+              if (t0 < Q)
+                *reinterpret_cast<float2*>(y + ((bc * Q + t0) * H + h) * P + p) =
+                    make_float2(acc[j][0], acc[j][1]);
+              if (t1 < Q)
+                *reinterpret_cast<float2*>(y + ((bc * Q + t1) * H + h) * P + p) =
+                    make_float2(acc[j][2], acc[j][3]);
             }
           }
-#pragma unroll
-          for (int a = 0; a < 4; ++a)
-            *reinterpret_cast<float4*>(y + ((bc * Q + r0 + a) * H + h) * P + 4 * tc) =
-                make_float4(acc[a][0], acc[a][1], acc[a][2], acc[a][3]);
         }
       }
     } else {
-      // state = sum_s w_s x_s (outer) B_s: rows (p) 4 tp.., columns (n) 4 tn..
-      const float4* Bs4 = reinterpret_cast<const float4*>(Bs);
-      for (int k = tid - HALF; k < PT * NT4; k += HALF) {
-        const int tn = k % NT4, tp = k / NT4;
-        float acc[4][4];
+      // state = (w * x)^T . B: rows (p) 16 mt .., columns (n) all of N.
+      const float* wh = Ws + g * Qp;
+      for (int mt = sw - 4; 16 * mt < P; mt += 4) {
+        const int p0 = 16 * mt + gq, p1 = p0 + 8;
+        for (int n0 = 0; n0 < lay.Np / 8; n0 += NT) {
+          float acc[NT][4];
 #pragma unroll
-        for (int a = 0; a < 4; ++a)
+          for (int j = 0; j < NT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+          for (int kb = 0; kb < Qp / 8; ++kb) {
+            const int s0 = 8 * kb + tq, s1 = s0 + 4;
+            const float w0 = wh[s0], w1 = wh[s1];
+            const float* x0 = xs + s0 * ldx;
+            const float* x1 = xs + s1 * ldx;
+            const float a[4] = {p0 < P ? w0 * x0[p0] : 0.f, p1 < P ? w0 * x0[p1] : 0.f,
+                                p0 < P ? w1 * x1[p0] : 0.f, p1 < P ? w1 * x1[p1] : 0.f};
+            uint32_t ah[4], al[4];
+            split4(a, ah, al);
+            const float* bp = Bs + s0 * ldb + 8 * n0 + gq;
 #pragma unroll
-          for (int b = 0; b < 4; ++b) acc[a][b] = 0.f;
-#pragma unroll 4
-        for (int s = 0; s < Q; ++s) {
-          const float4 xv = xs4[s * PT + tp];
-          const float4 bv = Bs4[s * NT4 + tn];
-          const float w = ws[s];
-          const float xw[4] = {xv.x * w, xv.y * w, xv.z * w, xv.w * w};
+            for (int j = 0; j < NT; ++j)
+              if (n0 + j < lay.Np / 8) {
+                const float b[2] = {bp[8 * j], bp[4 * ldb + 8 * j]};
+                mma_3xtf32(acc[j], ah, al, b);
+              }
+          }
 #pragma unroll
-          for (int a = 0; a < 4; ++a) {
-            acc[a][0] = fmaf(xw[a], bv.x, acc[a][0]);
-            acc[a][1] = fmaf(xw[a], bv.y, acc[a][1]);
-            acc[a][2] = fmaf(xw[a], bv.z, acc[a][2]);
-            acc[a][3] = fmaf(xw[a], bv.w, acc[a][3]);
+          for (int j = 0; j < NT; ++j) {
+            const int n = 8 * (n0 + j) + 2 * tq;
+            if (n >= N) continue;
+            if (p0 < P)
+              *reinterpret_cast<float2*>(st + ((bc * H + h) * P + p0) * N + n) =
+                  make_float2(acc[j][0], acc[j][1]);
+            if (p1 < P)
+              *reinterpret_cast<float2*>(st + ((bc * H + h) * P + p1) * N + n) =
+                  make_float2(acc[j][2], acc[j][3]);
           }
         }
-#pragma unroll
-        for (int a = 0; a < 4; ++a)
-          *reinterpret_cast<float4*>(st + ((bc * H + h) * P + 4 * tp + a) * N + 4 * tn) =
-              make_float4(acc[a][0], acc[a][1], acc[a][2], acc[a][3]);
       }
     }
-    __syncthreads();   // xs, Mt and ws are rewritten for the next head
+    slot_barrier(slot);   // xs is rewritten for the slot's next head
   }
 }
 
@@ -258,20 +342,24 @@ extern "C" const char* cuda_error_string(int err) {
 // All float32 and contiguous, 16-byte aligned: la (BC,Q,H), C/B (BC,Q,N),
 // x (BC,Q,H,P) -> y (BC,Q,H,P), st (BC,H,P,N), tot (BC,H), BC = B * nc.
 // Q % 8 == 0 and Q <= 128, N % 4 == 0, P % 4 == 0, 1 <= HG <= 16, and the
-// shared memory of the layout within a block's 227 KB.
+// shared memory of the one-slot layout within a block's 227 KB.
 extern "C" int ssd_intra_chunk_fwd(const void* la, const void* C, const void* B,
                                    const void* x, void* y, void* st, void* tot, int BC,
                                    int Q, int H, int N, int P, int HG, void* stream) {
   if (BC <= 0 || H <= 0 || Q <= 0 || Q > MAX_Q || Q % 8 || N <= 0 || N % 4 || P <= 0 ||
       P % 4 || HG <= 0 || HG > MAX_HG)
     return (int)cudaErrorInvalidValue;
-  const int smem = layout(Q, N, P, HG).total * (int)sizeof(float);
+  int slots = MAX_SLOTS;
+  while (slots > 1 && layout(Q, N, P, HG, slots).total * (int)sizeof(float) > MAX_SMEM)
+    --slots;
+  const int smem = layout(Q, N, P, HG, slots).total * (int)sizeof(float);
   if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(ssd_intra_chunk_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(BC, (H + HG - 1) / HG);
-  ssd_intra_chunk_kernel<<<grid, NTHREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+  ssd_intra_chunk_kernel<<<grid, slots * SLOT_THREADS, smem,
+                           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(la), static_cast<const float*>(C),
       static_cast<const float*>(B), static_cast<const float*>(x), static_cast<float*>(y),
       static_cast<float*>(st), static_cast<float*>(tot), Q, H, N, P, HG);

@@ -3,10 +3,11 @@ PyTorch version.
 
 The kernel, ``csrc/ssd_intra_chunk.cu``, replaces the TPU kernel
 ``src/repro/kernels/ssd_scan.py:ssd_intra_chunk``. On the H100 it is bound
-by operations; its header says what the design does about that. It reads la
-and x in their natural layouts (the TPU wrapper transposed both) and computes
-C . B^T once for a group of heads. The inter-chunk scan stays in the model
-code (``models/mamba2.ssd_chunked``).
+by operations; its three products run on the tensor cores (mma.sync, TF32
+operands split hi/lo for float32 accuracy), and its header says how. It
+reads la and x in their natural layouts (the TPU wrapper transposed both)
+and computes C . B^T once for a group of heads. The inter-chunk scan stays
+in the model code (``models/mamba2.ssd_chunked``).
 """
 
 from __future__ import annotations
@@ -55,13 +56,12 @@ def heads_per_block(BC: int, H: int, n_sm: int) -> int:
     return min(range(1, min(H, MAX_HEADS_PER_BLOCK) + 1), key=cost)
 
 
-def ssd_intra_chunk_cuda(la: torch.Tensor, C: torch.Tensor, B_in: torch.Tensor,
-                         x: torch.Tensor):
-    """Launch the CUDA kernel on PyTorch's current stream. Takes contiguous
-    float32 CUDA tensors with Q % 8 == 0, Q <= 128, N % 4 == 0, P % 4 == 0."""
+def check_inputs(la: torch.Tensor, C: torch.Tensor, B_in: torch.Tensor, x: torch.Tensor):
+    """Raise ValueError unless the tensors are what the kernel takes: float32,
+    contiguous and 16-byte aligned, la (B,nc,Q,H), C/B_in (B,nc,Q,N),
+    x (B,nc,Q,H,P) with Q % 8 == 0, Q <= 128, N % 4 == 0, P % 4 == 0.
+    Returns (B, nc, Q, H, N, P)."""
     ts = (la, C, B_in, x)
-    if not all(t.is_cuda for t in ts):
-        raise ValueError("ssd_intra_chunk_cuda takes CUDA tensors")
     if any(t.dtype != torch.float32 for t in ts):
         raise ValueError("ssd_intra_chunk_cuda takes float32 tensors")
     if la.dim() != 4 or C.dim() != 4 or x.dim() != 5 or C.shape != B_in.shape:
@@ -77,6 +77,16 @@ def ssd_intra_chunk_cuda(la: torch.Tensor, C: torch.Tensor, B_in: torch.Tensor,
                          f"P % 4 == 0; got Q {Q}, N {N}, P {P}")
     if not all(t.is_contiguous() and t.data_ptr() % 16 == 0 for t in ts):
         raise ValueError("ssd_intra_chunk_cuda needs contiguous, 16-byte aligned tensors")
+    return Bs, nc, Q, H, N, P
+
+
+def ssd_intra_chunk_cuda(la: torch.Tensor, C: torch.Tensor, B_in: torch.Tensor,
+                         x: torch.Tensor):
+    """Launch the CUDA kernel on PyTorch's current stream. Takes CUDA tensors
+    that pass ``check_inputs``."""
+    if not all(t.is_cuda for t in (la, C, B_in, x)):
+        raise ValueError("ssd_intra_chunk_cuda takes CUDA tensors")
+    Bs, nc, Q, H, N, P = check_inputs(la, C, B_in, x)
     lib = build.library("ssd_intra_chunk", _SIGNATURES)
     n_sm = torch.cuda.get_device_properties(x.device).multi_processor_count
     hg = heads_per_block(Bs * nc, H, n_sm)

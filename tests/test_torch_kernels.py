@@ -136,6 +136,66 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         ssd_intra_chunk_cuda(x, x, x, x[..., None])
 
 
+@pytest.mark.parametrize("shape,match", [
+    ((1, 1, 12, 2, 8, 8), "Q % 8 == 0"),          # Q off the 8-row step
+    ((1, 1, 136, 2, 8, 8), "Q <= 128"),
+    ((1, 1, 16, 2, 6, 8), "N % 4 == 0"),
+    ((1, 1, 16, 2, 8, 10), "P % 4 == 0"),
+])
+def test_ssd_contract_errors(shape, match):
+    """The kernel's contract is checked before any launch, on any device."""
+    from repro_torch.kernels.ssd_scan import check_inputs
+    B, nc, Q, H, N, P = shape
+    args = [torch.zeros(s) for s in ((B, nc, Q, H), (B, nc, Q, N), (B, nc, Q, N),
+                                     (B, nc, Q, H, P))]
+    with pytest.raises(ValueError, match=match):
+        check_inputs(*args)
+
+
+def test_ssd_contract_types_layouts_and_edges():
+    """float64, mismatched and non-contiguous inputs raise; the edge shapes
+    the kernel pads (Q 16 with N = P = 8; Q 40, N 4, P 12; Q 128) pass."""
+    from repro_torch.kernels.ssd_scan import check_inputs
+
+    def make(B, nc, Q, H, N, P, dtype=torch.float32):
+        return [torch.zeros(s, dtype=dtype) for s in
+                ((B, nc, Q, H), (B, nc, Q, N), (B, nc, Q, N), (B, nc, Q, H, P))]
+    with pytest.raises(ValueError, match="float32"):
+        check_inputs(*make(1, 1, 16, 1, 8, 8, torch.float64))
+    la, C, Bm, x = make(1, 1, 16, 2, 8, 8)
+    with pytest.raises(ValueError, match="do not match"):
+        check_inputs(la, C, Bm, x[:, :, :, :1])
+    with pytest.raises(ValueError, match="bad shapes"):
+        check_inputs(la, C, Bm[..., :4], x)
+    with pytest.raises(ValueError, match="contiguous"):
+        check_inputs(la, C, Bm, x.transpose(3, 4).contiguous().transpose(3, 4))
+    for shape in ((1, 1, 16, 1, 8, 8), (1, 2, 40, 3, 4, 12), (2, 2, 128, 113, 64, 64)):
+        assert check_inputs(*make(*shape)) == shape
+
+
+@pytest.mark.parametrize("BC,H,sm", [(BC, H, sm) for BC in (1, 4, 32, 64)
+                                     for H in (1, 5, 16, 17, 112, 113) for sm in (1, 114, 132)])
+def test_heads_per_block_covers_every_head(BC, H, sm):
+    """The grid (BC, ceil(H / hg)) covers every head once, with at most
+    MAX_HEADS_PER_BLOCK heads a block (the kernel's smem and scan limit)."""
+    from repro_torch.kernels.ssd_scan import MAX_HEADS_PER_BLOCK, heads_per_block
+    hg = heads_per_block(BC, H, sm)
+    assert 1 <= hg <= min(H, MAX_HEADS_PER_BLOCK)
+    groups = -(-H // hg)
+    covered = np.zeros(H, np.int64)
+    for b in range(groups):
+        covered[b * hg:min((b + 1) * hg, H)] += 1
+    assert (covered == 1).all()
+
+
+def test_heads_per_block_main_shape():
+    """zamba2-7b prefill on an H100: B 8 x 4 chunks, 112 heads, 132 SMs ->
+    groups of 14 heads, 8 groups a chunk, 256 blocks in two waves."""
+    from repro_torch.kernels.ssd_scan import heads_per_block
+    assert heads_per_block(32, 112, 132) == 14
+    assert heads_per_block(1, 1, 132) == 1
+
+
 # -- the decode kernel's split plan and argument packing (no card needed) --------
 SPLIT_SHAPES = [(B, K, T, sm) for B in (1, 8, 64) for K in (1, 8, 32)
                 for T in (1, 17, 544, 4096) for sm in (1, 132)]
@@ -190,6 +250,7 @@ def _ctype(c_type: str):
 @pytest.mark.parametrize("source,fn,module", [
     ("decode_attention.cu", "decode_attention_fwd", "decode_attention"),
     ("flash_attention.cu", "flash_attention_fwd", "flash_attention"),
+    ("ssd_intra_chunk.cu", "ssd_intra_chunk_fwd", "ssd_scan"),
 ])
 def test_ctypes_signatures_match_c(source, fn, module):
     """``_SIGNATURES`` gives ctypes the C entry point's argument types."""

@@ -15,38 +15,44 @@
 // Q^2 P + 2 Q P N flops on Q P + Q floats in and Q P + P N + 1 out; at the
 // zamba2-7b prefill shape (Q 128, N = P = 64) that is ~26 flop/byte, above
 // the ~20 flop/byte ridge of float32 outside the tensor cores (67 TFLOP/s,
-// 3.35 TB/s).
-//
-// Design: the three products (C . B^T, M . x and (w * x)^T . B) run on the
-// tensor cores, mma.sync m16n8k8 with TF32 operands. TF32 keeps 10 mantissa
-// bits, too few for the 2e-4 the kernel is held to, so every operand is
-// split in registers into hi = tf32(a) and lo = tf32(a - hi) and each tile
-// accumulates lo.hi + hi.lo + hi.hi in float32 (3xTF32): the dropped lo.lo
-// term and the rounding of lo leave ~1e-6 relative, float32's accuracy at a
-// third of the TF32 rate.
+// 3.35 TB/s). So the three products (C . B^T, M . x and (w * x)^T . B) run
+// on the tensor cores, mma.sync m16n8k8 with TF32 operands. TF32 keeps 10
+// mantissa bits, too few for the 2e-4 the kernel is held to, so every
+// operand is split in registers into hi = tf32(a) and lo = a - hi and each
+// tile accumulates lo.hi + hi.lo + hi.hi in float32 (3xTF32): the dropped
+// lo.lo term and the TF32 part taken of lo leave ~1e-6 relative, float32's
+// accuracy for three tensor-core products. What then bounds the kernel is
+// the rate at which each SM sub-partition issues those products and the
+// splits and loads that feed them (on an H100 at 700 W, ~11 cycles an
+// m16n8k8 while the heads are computed).
 //
 // One block per (b*chunk, group of up to 16 heads; the wrapper picks the
 // group size that fills the SMs in the fewest waves). C . B^T is the same
-// for every head, so the block builds it once (lower 16 x 8 tiles only) into
-// a shared tile CB[t][s] whose row stride (Q + 4) keeps fragment loads free
-// of bank conflicts. L is scanned in float64, one warp a head, so that
-// L_t - L_s keeps its digits when L reaches ~-100 over a chunk; the end
-// weights w_s = exp(L_{Q-1} - L_s) are taken from it at once. The block's
-// 16 warps then form two slots of 8 that take the group's heads in turns
-// and synchronise only among themselves (named barriers), so one slot's x
-// load overlaps the other's products. In a slot, four warps own the 16-row
-// strips of y, strip r paired with strip Q/16-1-r so that each does the
-// same work, over all P columns: M is never stored, a warp builds its A
-// fragment from CB and L, exp(L_t - L_s) * CB[t][s] for s <= t and zero
-// above the diagonal (exp never sees a masked, positive exponent), so each
-// M entry is exponentiated once a head and k-blocks above the diagonal are
-// skipped. The other four warps own 16-row strips of the state, applying
-// w_s while they form the A fragment from x. Q is padded to 16 and N and P
-// to 8 with zeros in shared memory. Shared memory (~200 KB at the main
-// shape: CB, B, two x tiles, L and w) allows one block per SM; where the
-// two x tiles do not fit, one slot of 8 warps runs.
+// for every head, so the block builds it once (the 16 x 8 tiles on or below
+// the diagonal) into a shared tile CB[t][s] whose row stride (Q + 4) keeps
+// fragment loads free of bank conflicts. L is scanned in float64, one warp a
+// head, so that L_t - L_s keeps its digits when L reaches ~-100 over a
+// chunk; tot and the end weights w_s = exp(L_{Q-1} - L_s) are taken from it,
+// and it is then kept as float pairs (hi + lo), whose differences carry the
+// same digits without float64 math. The block's 16 warps form two slots of
+// 8 that take the group's heads in turns and synchronise only among
+// themselves (named barriers), so one slot's x load overlaps the other's
+// products. In a slot, four warps own the 16-row strips of y, strip r paired
+// with strip Q/16-1-r so that each does the same work, over all P columns.
+// M is never stored: a warp builds its A fragment from CB and L,
+// CB[t][s] * exp(L_t - L_s), with the exponent -inf above the diagonal, so
+// exp never sees a masked, positive exponent and the four exps of a
+// fragment need no branch. Each M entry is exponentiated once a head, and
+// k-blocks above the diagonal are skipped. The other four warps own 16-row
+// strips of the state and apply w_s while they form the A fragment from x.
+// Each A fragment serves NT = 8 n-tiles, whose products are issued in three
+// passes over the tiles so that the tensor core has independent work. Q is
+// padded to 16 and N and P to 8 with zeros in shared memory. Shared memory
+// (~200 KB at the main shape: CB, B, two x tiles, L and w) allows one block
+// per SM; where the two x tiles do not fit, one slot of 8 warps runs.
 
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace {
@@ -57,6 +63,7 @@ constexpr int MAX_Q = 128;
 constexpr int MAX_HG = 16;
 constexpr int MAX_SMEM = 232448;
 constexpr int NT = 8;                      // n-tiles of 8 a warp accumulates at once
+constexpr int LOAD_DEPTH = 8;              // float4 loads a thread keeps in flight
 
 __host__ __device__ inline int round_up(int n, int m) { return (n + m - 1) / m * m; }
 
@@ -95,10 +102,15 @@ __host__ __device__ inline Layout layout(int Q, int N, int P, int HG, int slots)
   return s;
 }
 
-// hi = tf32(a), lo = tf32(a - hi), both rounded to nearest.
+// hi = a rounded to TF32, to nearest with ties away from zero: for finite a
+// the value cvt.rna.tf32.f32 gives, by an integer add and mask (2
+// instructions where cvt.rna takes 4 on sm_90a, with its checks for inf and
+// NaN, which these inputs never hold). lo = a - hi, exact in float32, goes
+// to the tensor core as it is: the core uses only its top 19 bits (sign,
+// exponent, 10 mantissa bits), an error below 2^-10 |lo| <= 2^-21 |a|.
 __device__ __forceinline__ void split(float a, uint32_t& hi, uint32_t& lo) {
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(hi) : "f"(a));
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(lo) : "f"(a - __uint_as_float(hi)));
+  hi = (__float_as_uint(a) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(a - __uint_as_float(hi));
 }
 
 __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
@@ -109,22 +121,52 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// d += a . b in 3xTF32 from the float32 fragments a (16 x 8, row-major
-// m16n8k8 A layout) and b (8 x 8, its B layout).
-__device__ __forceinline__ void mma_3xtf32(float (&d)[4], const uint32_t (&ah)[4],
-                                           const uint32_t (&al)[4], const float (&b)[2]) {
-  uint32_t bh[2], bl[2];
-  split(b[0], bh[0], bl[0]);
-  split(b[1], bh[1], bl[1]);
-  mma_tf32(d, al, bh);
-  mma_tf32(d, ah, bl);
-  mma_tf32(d, ah, bh);
-}
-
 __device__ __forceinline__ void split4(const float (&a)[4], uint32_t (&hi)[4],
                                        uint32_t (&lo)[4]) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) split(a[i], hi[i], lo[i]);
+}
+
+// acc[j] += A . B_j in 3xTF32 for the n-tiles j < nt (all NT when FULL):
+// a is the float32 A fragment (16 x 8, m16n8k8's row-major A layout); this
+// lane's two B elements of n-tile j are b[j * jstride] and b[j * jstride + k4]
+// (rows k = tq and tq + 4 of the 8 x 8 tile, column gq). The splits come
+// first and the three products are issued tile by tile in three passes, so
+// that the NT accumulators give the tensor core independent work.
+template <bool FULL>
+__device__ __forceinline__ void mma_tiles(float (&acc)[NT][4], const float (&a)[4],
+                                          const float* b, int jstride, int k4, int nt) {
+  uint32_t ah[4], al[4], bh[NT][2], bl[NT][2];
+  split4(a, ah, al);
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+    if (FULL || j < nt) {
+      split(b[j * jstride], bh[j][0], bl[j][0]);
+      split(b[j * jstride + k4], bh[j][1], bl[j][1]);
+    }
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+    if (FULL || j < nt) mma_tf32(acc[j], al, bh[j]);
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+    if (FULL || j < nt) mma_tf32(acc[j], ah, bl[j]);
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+    if (FULL || j < nt) mma_tf32(acc[j], ah, bh[j]);
+}
+
+__device__ __forceinline__ void mma_row(float (&acc)[NT][4], const float (&a)[4],
+                                        const float* b, int jstride, int k4, int nt) {
+  if (nt >= NT)
+    mma_tiles<true>(acc, a, b, jstride, k4, NT);
+  else
+    mma_tiles<false>(acc, a, b, jstride, k4, nt);
+}
+
+// The exponent of M's decay, L_t - L_s <= 0 from L as float pairs, or -inf
+// where s > t.
+__device__ __forceinline__ float decay_exponent(float2 Lt, float2 Ls, bool keep) {
+  return keep ? fminf((Lt.x - Ls.x) + (Lt.y - Ls.y), 0.f) : -INFINITY;
 }
 
 __device__ __forceinline__ void slot_barrier(int slot) {
@@ -135,12 +177,21 @@ __device__ __forceinline__ void slot_barrier(int slot) {
 // stride ld, zero-filling rows [Q, Qp) and columns [n, round_up(n, 8)).
 __device__ __forceinline__ void load_tile(float* dst, int ld, const float* src, int64_t src_ld,
                                           int Q, int Qp, int n, int tid, int nthreads) {
-  const int c4 = round_up(n, 8) / 4;
-  for (int i = tid; i < Qp * c4; i += nthreads) {
-    const int t = i / c4, c = i % c4;
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (t < Q && 4 * c < n) v = reinterpret_cast<const float4*>(src + t * src_ld)[c];
-    *reinterpret_cast<float4*>(dst + t * ld + 4 * c) = v;
+  const int c4 = round_up(n, 8) / 4, total = Qp * c4;
+  for (int i0 = tid; i0 < total; i0 += LOAD_DEPTH * nthreads) {
+    float4 v[LOAD_DEPTH];                 // all of a thread's loads in flight at once
+#pragma unroll
+    for (int u = 0; u < LOAD_DEPTH; ++u) {
+      const int i = i0 + u * nthreads, t = i / c4, c = i % c4;
+      v[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (i < total && t < Q && 4 * c < n)
+        v[u] = reinterpret_cast<const float4*>(src + t * src_ld)[c];
+    }
+#pragma unroll
+    for (int u = 0; u < LOAD_DEPTH; ++u) {
+      const int i = i0 + u * nthreads, t = i / c4, c = i % c4;
+      if (i < total) *reinterpret_cast<float4*>(dst + t * ld + 4 * c) = v[u];
+    }
   }
 }
 
@@ -203,31 +254,43 @@ ssd_intra_chunk_kernel(const float* __restrict__ la, const float* __restrict__ C
     if (lane == 0) tot[bc * H + h0 + g] = (float)Lend;
     for (int k = 0; k < per; ++k)
       if (lo + k < Qp) Ws[g * Qp + lo + k] = expf((float)(Lend - Lh[lo + k]));
+    // Then each L_t in place as a float pair hi + lo (8 bytes, as the
+    // double), so that the y warps take L_t - L_s without float64 math:
+    // (hi_t - hi_s) + (lo_t - lo_s) is within ~1 ulp of the float nearest
+    // the difference.
+    __syncwarp();
+    for (int k = 0; k < per; ++k)
+      if (lo + k < Qp) {
+        const double v = Lh[lo + k];
+        const float vh = (float)v;
+        reinterpret_cast<float2*>(Lh)[lo + k] = make_float2(vh, (float)(v - vh));
+      }
   }
 
-  // 3. CB = C . B^T once for the group, on mma: the 16 x 8 tiles (i, j) on
-  // or below the diagonal (j <= 2 i + 1), spread over all warps.
+  // 3. CB = C . B^T once for the group, on mma: row strip i (16 rows) takes
+  // the 16 x 8 tiles j <= 2 i + 1 (on or below the diagonal), NT at a time,
+  // one (strip, chunk) a warp.
   {
     const int ns = Qp / 16, nkb = lay.Np / 8;
-    for (int q = warp; q < ns * (ns + 1); q += nwarps) {
-      int i = 0;
-      while ((i + 1) * (i + 2) <= q) ++i;
-      const int j = q - i * (i + 1);
-      const float* c0 = Cs + (16 * i + gq) * lay.ldcc + tq;
-      const float* b0 = Bs + (8 * j + gq) * ldb + tq;
-      float acc[4] = {0.f, 0.f, 0.f, 0.f};
-      for (int kb = 0; kb < nkb; ++kb) {
-        const float a[4] = {c0[8 * kb], c0[8 * lay.ldcc + 8 * kb], c0[8 * kb + 4],
-                            c0[8 * lay.ldcc + 8 * kb + 4]};
-        const float b[2] = {b0[8 * kb], b0[8 * kb + 4]};
-        uint32_t ah[4], al[4];
-        split4(a, ah, al);
-        mma_3xtf32(acc, ah, al, b);
+    for (int i = 0, q = 0; i < ns; ++i)
+      for (int j0 = 0; j0 < 2 * i + 2; j0 += NT, ++q) {
+        if (q % nwarps != warp) continue;
+        const int nt = min(NT, 2 * i + 2 - j0);
+        const float* c0 = Cs + (16 * i + gq) * lay.ldcc + tq;
+        float acc[NT][4] = {};
+        for (int kb = 0; kb < nkb; ++kb) {
+          const float a[4] = {c0[8 * kb], c0[8 * lay.ldcc + 8 * kb], c0[8 * kb + 4],
+                              c0[8 * lay.ldcc + 8 * kb + 4]};
+          mma_row(acc, a, Bs + (8 * j0 + gq) * ldb + 8 * kb + tq, 8 * ldb, 4, nt);
+        }
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+          if (j < nt) {
+            float* out = CB + (16 * i + gq) * ldc + 8 * (j0 + j) + 2 * tq;
+            *reinterpret_cast<float2*>(out) = make_float2(acc[j][0], acc[j][1]);
+            *reinterpret_cast<float2*>(out + 8 * ldc) = make_float2(acc[j][2], acc[j][3]);
+          }
       }
-      float* out = CB + (16 * i + gq) * ldc + 8 * j + 2 * tq;
-      *reinterpret_cast<float2*>(out) = make_float2(acc[0], acc[1]);
-      *reinterpret_cast<float2*>(out + 8 * ldc) = make_float2(acc[2], acc[3]);
-    }
   }
   __syncthreads();   // CB, L and w are done; the C region becomes the x tiles
 
@@ -244,41 +307,36 @@ ssd_intra_chunk_kernel(const float* __restrict__ la, const float* __restrict__ C
 
     if (sw < 4) {
       // y = M . x: strips pi and ns-1-pi, 16 rows each, over all P columns.
-      const double* Lh = Ls + g * Qp;
+      const float2* Lh = reinterpret_cast<const float2*>(Ls + g * Qp);
       for (int pi = sw; pi < (ns + 1) / 2; pi += 4) {
         for (int half = 0; half < 2; ++half) {
           const int r = half ? ns - 1 - pi : pi;
           if (half && r == pi) break;
           const int t0 = 16 * r + gq, t1 = t0 + 8;
-          const double L0 = Lh[t0], L1 = Lh[t1];
+          const float2 L0 = Lh[t0], L1 = Lh[t1];
           const float* cb0 = CB + t0 * ldc + tq;
           for (int n0 = 0; n0 < lay.Pp / 8; n0 += NT) {
-            float acc[NT][4];
-#pragma unroll
-            for (int j = 0; j < NT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+            const int nt = min(NT, lay.Pp / 8 - n0);
+            float acc[NT][4] = {};
             for (int kb = 0; kb < 2 * r + 2; ++kb) {
               const int s0 = 8 * kb + tq, s1 = s0 + 4;
-              const double Ls0 = Lh[s0], Ls1 = Lh[s1];
+              const float2 Ls0 = Lh[s0], Ls1 = Lh[s1];
               const float* cb = cb0 + 8 * kb;
-              const float m[4] = {
-                  s0 <= t0 ? cb[0] * expf((float)(L0 - Ls0)) : 0.f,
-                  s0 <= t1 ? cb[8 * ldc] * expf((float)(L1 - Ls0)) : 0.f,
-                  s1 <= t0 ? cb[4] * expf((float)(L0 - Ls1)) : 0.f,
-                  s1 <= t1 ? cb[8 * ldc + 4] * expf((float)(L1 - Ls1)) : 0.f};
-              uint32_t ah[4], al[4];
-              split4(m, ah, al);
-              const float* xp = xs + s0 * ldx + 8 * n0 + gq;
-#pragma unroll
-              for (int j = 0; j < NT; ++j)
-                if (n0 + j < lay.Pp / 8) {
-                  const float b[2] = {xp[8 * j], xp[4 * ldx + 8 * j]};
-                  mma_3xtf32(acc[j], ah, al, b);
-                }
+              // M = CB * exp(L_t - L_s) for s <= t; a masked entry (s > t)
+              // takes the exponent -inf, so exp gives 0 and never sees a
+              // positive exponent, and no branch keeps the four exps apart.
+              // __expf (ex2.approx of x log2 e) is within ~6e-6 relative
+              // down to x = -100.
+              const float m[4] = {cb[0] * __expf(decay_exponent(L0, Ls0, s0 <= t0)),
+                                  cb[8 * ldc] * __expf(decay_exponent(L1, Ls0, s0 <= t1)),
+                                  cb[4] * __expf(decay_exponent(L0, Ls1, s1 <= t0)),
+                                  cb[8 * ldc + 4] * __expf(decay_exponent(L1, Ls1, s1 <= t1))};
+              mma_row(acc, m, xs + s0 * ldx + 8 * n0 + gq, 8, 4 * ldx, nt);
             }
 #pragma unroll
             for (int j = 0; j < NT; ++j) {
               const int p = 8 * (n0 + j) + 2 * tq;
-              if (p >= P) continue;
+              if (j >= nt || p >= P) continue;
               if (t0 < Q)
                 *reinterpret_cast<float2*>(y + ((bc * Q + t0) * H + h) * P + p) =
                     make_float2(acc[j][0], acc[j][1]);
@@ -295,9 +353,8 @@ ssd_intra_chunk_kernel(const float* __restrict__ la, const float* __restrict__ C
       for (int mt = sw - 4; 16 * mt < P; mt += 4) {
         const int p0 = 16 * mt + gq, p1 = p0 + 8;
         for (int n0 = 0; n0 < lay.Np / 8; n0 += NT) {
-          float acc[NT][4];
-#pragma unroll
-          for (int j = 0; j < NT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+          const int nt = min(NT, lay.Np / 8 - n0);
+          float acc[NT][4] = {};
           for (int kb = 0; kb < Qp / 8; ++kb) {
             const int s0 = 8 * kb + tq, s1 = s0 + 4;
             const float w0 = wh[s0], w1 = wh[s1];
@@ -305,20 +362,12 @@ ssd_intra_chunk_kernel(const float* __restrict__ la, const float* __restrict__ C
             const float* x1 = xs + s1 * ldx;
             const float a[4] = {p0 < P ? w0 * x0[p0] : 0.f, p1 < P ? w0 * x0[p1] : 0.f,
                                 p0 < P ? w1 * x1[p0] : 0.f, p1 < P ? w1 * x1[p1] : 0.f};
-            uint32_t ah[4], al[4];
-            split4(a, ah, al);
-            const float* bp = Bs + s0 * ldb + 8 * n0 + gq;
-#pragma unroll
-            for (int j = 0; j < NT; ++j)
-              if (n0 + j < lay.Np / 8) {
-                const float b[2] = {bp[8 * j], bp[4 * ldb + 8 * j]};
-                mma_3xtf32(acc[j], ah, al, b);
-              }
+            mma_row(acc, a, Bs + s0 * ldb + 8 * n0 + gq, 8, 4 * ldb, nt);
           }
 #pragma unroll
           for (int j = 0; j < NT; ++j) {
             const int n = 8 * (n0 + j) + 2 * tq;
-            if (n >= N) continue;
+            if (j >= nt || n >= N) continue;
             if (p0 < P)
               *reinterpret_cast<float2*>(st + ((bc * H + h) * P + p0) * N + n) =
                   make_float2(acc[j][0], acc[j][1]);

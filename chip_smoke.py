@@ -114,9 +114,13 @@ def copies_for(nbytes: int) -> int:
     return max(1, min(8, math.ceil(128e6 / max(nbytes, 1))))
 
 
+def bound_parts(nbytes: float, flops: float, dtype: str) -> tuple[float, float]:
+    """Least ms for the bytes at the HBM rate and for the flops at the peak."""
+    return nbytes / HBM_BYTES_PER_S * 1e3, flops / PEAK_FLOPS[dtype] * 1e3
+
+
 def bound(nbytes: float, flops: float, dtype: str) -> tuple[float, str]:
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    t_bytes, t_ops = bound_parts(nbytes, flops, dtype)
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -319,11 +323,13 @@ def run_kernel_phase(torch) -> dict:
                 lib_ms = time_ms(torch, lambda: case["library"](sets()))
                 lib_dev_ms = device_ms(torch, lambda: case["library"](sets()))
             bound_ms, bound_by = bound(nbytes, case["flops"], dtype_name)
+            bytes_ms, ops_ms = bound_parts(nbytes, case["flops"], dtype_name)
             row = {"phase": "kernel", "kernel": case["kernel"], **case["desc"],
                    "dtype": dtype_name, "max_abs_err": err, "tol": list(tols), "ok": ok,
                    **extra, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
                    "library_ms": lib_ms, "library_device_ms": lib_dev_ms,
-                   "bound_ms": bound_ms, "bound_by": bound_by}
+                   "bound_ms": bound_ms, "bound_by": bound_by,
+                   "bound_bytes_ms": bytes_ms, "bound_ops_ms": ops_ms}
             emit(row)
             if not ok:
                 failures.append(row)

@@ -23,8 +23,7 @@
 // lo.lo term and the TF32 part taken of lo leave ~1e-6 relative, float32's
 // accuracy for three tensor-core products. What then bounds the kernel is
 // the rate at which each SM sub-partition issues those products and the
-// splits and loads that feed them (on an H100 at 700 W, ~11 cycles an
-// m16n8k8 while the heads are computed).
+// splits and loads that feed them.
 //
 // One block per (b*chunk, group of up to 16 heads; the wrapper picks the
 // group size that fills the SMs in the fewest waves). C . B^T is the same

@@ -43,7 +43,9 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # bf16 tensor cores; f32 non-tensor
+# bf16 and TF32 on the tensor cores; float32 outside them (NVIDIA data sheet,
+# SXM, dense)
+PEAK_FLOPS = {"bfloat16": 989e12, "tf32": 495e12, "float32": 67e12}
 TOL = {"bfloat16": 2e-2, "float32": 2e-5}
 SSD_TOLS = (2e-4, 2e-4, 1e-5)      # y, state, tot (tests/test_kernels.py:81-83)
 B, PROMPT, GEN = 8, 512, 32
@@ -114,12 +116,16 @@ def copies_for(nbytes: int) -> int:
     return max(1, min(8, math.ceil(128e6 / max(nbytes, 1))))
 
 
-def bound_parts(nbytes: float, flops: float, dtype: str) -> tuple[float, float]:
-    """Least ms for the bytes at the HBM rate and for the flops at the peak."""
-    return nbytes / HBM_BYTES_PER_S * 1e3, flops / PEAK_FLOPS[dtype] * 1e3
+def bound_parts(nbytes: float, flops, dtype: str) -> tuple[float, float]:
+    """Least ms for the bytes at the HBM rate and for the flops at the peak:
+    ``flops`` is a count at ``dtype``'s peak, or ``{rate: count}`` for work
+    that runs at several (keys of PEAK_FLOPS)."""
+    work = flops if isinstance(flops, dict) else {dtype: flops}
+    return (nbytes / HBM_BYTES_PER_S * 1e3,
+            sum(n / PEAK_FLOPS[k] for k, n in work.items()) * 1e3)
 
 
-def bound(nbytes: float, flops: float, dtype: str) -> tuple[float, str]:
+def bound(nbytes: float, flops, dtype: str) -> tuple[float, str]:
     t_bytes, t_ops = bound_parts(nbytes, flops, dtype)
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
@@ -256,20 +262,23 @@ def kernel_cases(torch):
     # once with la = -|N(0,1)| * 0.1 and once with la from the model's range
     # (dt = softplus(N(0,1)), A = -1). In that range L reaches ~-100 over a
     # chunk, where the float32 plain version's own cumsum is off by ~1e-5
-    # relative in exp(L_t - L_s); that case is held to the plain version run
-    # in float64.
+    # relative in exp(L_t - L_s); that case, and la = N(0,1) * 0.05 (la > 0
+    # in places, exp(L_t - L_s) > 1), are held to the plain version run in
+    # float64.
     for (Bs, nc, Q, H, N, P), la_kind, main in [
             ((2, 4, 32, 8, 16, 16), "small", None), ((1, 2, 64, 4, 64, 64), "small", None),
             ((1, 1, 128, 2, 32, 64), "small", None),
             # edges: one mma tile; Q, N and P off the mma tile
             ((1, 1, 16, 1, 8, 8), "small", None), ((1, 2, 40, 3, 4, 12), "small", None),
+            # la > 0 in places; P 128 at Q 128, where the kernel runs one slot
+            ((1, 2, 40, 3, 4, 12), "mixed", None), ((1, 1, 128, 2, 64, 128), "small", None),
             ((B, PROMPT // 128, 128, 112, 64, 64), "small", ZAMBA),
             ((B, PROMPT // 128, 128, 112, 64, 64), "model", None)]:
         def make(dtype, shape=(Bs, nc, Q, H, N, P), la_kind=la_kind):
             Bs, nc, Q, H, N, P = shape
             g = torch.Generator(device=dev).manual_seed(2)
             z = torch.randn((Bs, nc, Q, H), generator=g, device=dev)
-            la = -F.softplus(z) if la_kind == "model" else -z.abs() * 0.1
+            la = {"small": -z.abs() * 0.1, "model": -F.softplus(z), "mixed": z * 0.05}[la_kind]
             return {"la": la, "C": randn(g, (Bs, nc, Q, N), dtype),
                     "B": randn(g, (Bs, nc, Q, N), dtype),
                     "x": randn(g, (Bs, nc, Q, H, P), dtype)}
@@ -281,16 +290,17 @@ def kernel_cases(torch):
             run=lambda a: ssd_intra_chunk_cuda(a["la"], a["C"], a["B"], a["x"]),
             plain=lambda a: ssd_intra_chunk_plain(a["la"], a["C"], a["B"], a["x"]),
             oracle=(lambda a: ssd_intra_chunk_plain(*(a[k].double() for k in "la C B x".split())))
-            if la_kind == "model" else None,
+            if la_kind != "small" else None,
             library=None,
             # la, C, B, x read once; y, state, tot written once
             nbytes=lambda isz, BC=BC, Q=Q, H=H, N=N, P=P: isz * (
                 BC * Q * H + 2 * BC * Q * N + 2 * BC * Q * H * P + BC * H * P * N + BC * H),
-            # C.B^T once per (b, chunk) on s <= t; per head: M on s <= t
-            # (difference, exp, product), M.x on s <= t, the end weights and
-            # the state x (outer) B
-            flops=2 * BC * N * tri + BC * H * (3 * tri + 2 * P * tri + 2 * Q
-                                               + Q * P + 2 * Q * P * N),
+            # On the tensor cores in 3xTF32 (three TF32 products for each
+            # float32 one): C.B^T once per (b, chunk) on s <= t; per head
+            # M.x on s <= t and the state (w x)^T B. Outside them: per head M
+            # on s <= t (difference, exp, product), the end weights, w x.
+            flops={"tf32": 3 * (2 * BC * N * tri + BC * H * (2 * P * tri + 2 * Q * P * N)),
+                   "float32": BC * H * (3 * tri + 2 * Q + Q * P)},
             main=main))
     return cases
 

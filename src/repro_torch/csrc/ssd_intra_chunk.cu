@@ -11,19 +11,24 @@
 //   state = sum_s exp(L_{Q-1} - L_s) x_s (outer) B_s            (P x N)
 //   tot   = L_{Q-1}
 //
-// What bounds it on the H100: operations. Per (chunk, head) it does about
-// Q^2 P + 2 Q P N flops on Q P + Q floats in and Q P + P N + 1 out; at the
-// zamba2-7b prefill shape (Q 128, N = P = 64) that is ~26 flop/byte, above
-// the ~20 flop/byte ridge of float32 outside the tensor cores (67 TFLOP/s,
-// 3.35 TB/s). So the three products (C . B^T, M . x and (w * x)^T . B) run
-// on the tensor cores, mma.sync m16n8k8 with TF32 operands. TF32 keeps 10
+// What bounds it on the H100. Per (chunk, head) it does about Q^2 P + 2 Q P N
+// flops on Q P + Q floats in and Q P + P N + 1 out; at the zamba2-7b prefill
+// shape (Q 128, N = P = 64) that is ~26 flop/byte, above the ~20 flop/byte
+// ridge of float32 outside the tensor cores (67 TFLOP/s, 3.35 TB/s). So the
+// three products (C . B^T, M . x and (w * x)^T . B) run on the tensor cores,
+// mma.sync m16n8k8 with TF32 operands, where even at three TF32 products for
+// each float32 one (495 / 3 TFLOP/s) the floor is the bytes. TF32 keeps 10
 // mantissa bits, too few for the 2e-4 the kernel is held to, so every
 // operand is split in registers into hi = tf32(a) and lo = a - hi and each
-// tile accumulates lo.hi + hi.lo + hi.hi in float32 (3xTF32): the dropped
-// lo.lo term and the TF32 part taken of lo leave ~1e-6 relative, float32's
-// accuracy for three tensor-core products. What then bounds the kernel is
-// the rate at which each SM sub-partition issues those products and the
-// splits and loads that feed them.
+// tile takes lo.hi + hi.lo + hi.hi (3xTF32): the dropped lo.lo term and the
+// TF32 part taken of lo leave ~1e-6 relative. The core rounds each mma's
+// float32 sum toward zero, a bias that adds up over the 48 mma of a
+// 128-deep product; so each k-block's three products are summed on the core
+// from zero and added to the accumulator in registers, rounded to nearest.
+// That keeps float32's accuracy where a y entry is a small difference of
+// large terms. What bounds the kernel in practice is the rate at which each
+// SM sub-partition issues those products and the splits, adds and loads
+// that feed them.
 //
 // One block per (b*chunk, group of up to 16 heads; the wrapper picks the
 // group size that fills the SMs in the fewest waves). C . B^T is the same
@@ -44,11 +49,11 @@
 // fragment need no branch. Each M entry is exponentiated once a head, and
 // k-blocks above the diagonal are skipped. The other four warps own 16-row
 // strips of the state and apply w_s while they form the A fragment from x.
-// Each A fragment serves NT = 8 n-tiles, whose products are issued in three
-// passes over the tiles so that the tensor core has independent work. Q is
-// padded to 16 and N and P to 8 with zeros in shared memory. Shared memory
-// (~200 KB at the main shape: CB, B, two x tiles, L and w) allows one block
-// per SM; where the two x tiles do not fit, one slot of 8 warps runs.
+// Each A fragment serves NT = 8 n-tiles, independent chains of products
+// that keep the tensor core busy. Q is padded to 16 and N and P to 8 with
+// zeros in shared memory. Shared memory (~200 KB at the main shape: CB, B,
+// two x tiles, L and w) allows one block per SM; where the two x tiles do
+// not fit, one slot of 8 warps runs.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -126,32 +131,42 @@ __device__ __forceinline__ void split4(const float (&a)[4], uint32_t (&hi)[4],
   for (int i = 0; i < 4; ++i) split(a[i], hi[i], lo[i]);
 }
 
+// d = A . B on the tensor core, from a zero accumulator.
+__device__ __forceinline__ void mma_tf32_from0(float (&d)[4], const uint32_t (&a)[4],
+                                               const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]), "f"(0.f));
+}
+
 // acc[j] += A . B_j in 3xTF32 for the n-tiles j < nt (all NT when FULL):
 // a is the float32 A fragment (16 x 8, m16n8k8's row-major A layout); this
 // lane's two B elements of n-tile j are b[j * jstride] and b[j * jstride + k4]
-// (rows k = tq and tq + 4 of the 8 x 8 tile, column gq). The splits come
-// first and the three products are issued tile by tile in three passes, so
-// that the NT accumulators give the tensor core independent work.
+// (rows k = tq and tq + 4 of the 8 x 8 tile, column gq). Each tile's three
+// products, small terms first, are summed on the core from zero and added
+// to acc[j] in registers (see the header); the NT tiles are independent
+// chains, which the compiler interleaves. FULL drops the j < nt guards: the
+// guarded copy alone took 21% longer at the main shape on an H100
+// (tools/time_ssd_sources.py).
 template <bool FULL>
 __device__ __forceinline__ void mma_tiles(float (&acc)[NT][4], const float (&a)[4],
                                           const float* b, int jstride, int k4, int nt) {
-  uint32_t ah[4], al[4], bh[NT][2], bl[NT][2];
+  uint32_t ah[4], al[4];
   split4(a, ah, al);
 #pragma unroll
   for (int j = 0; j < NT; ++j)
     if (FULL || j < nt) {
-      split(b[j * jstride], bh[j][0], bl[j][0]);
-      split(b[j * jstride + k4], bh[j][1], bl[j][1]);
+      uint32_t bh[2], bl[2];
+      split(b[j * jstride], bh[0], bl[0]);
+      split(b[j * jstride + k4], bh[1], bl[1]);
+      float p[4];
+      mma_tf32_from0(p, al, bh);
+      mma_tf32(p, ah, bl);
+      mma_tf32(p, ah, bh);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[j][i] += p[i];
     }
-#pragma unroll
-  for (int j = 0; j < NT; ++j)
-    if (FULL || j < nt) mma_tf32(acc[j], al, bh[j]);
-#pragma unroll
-  for (int j = 0; j < NT; ++j)
-    if (FULL || j < nt) mma_tf32(acc[j], ah, bl[j]);
-#pragma unroll
-  for (int j = 0; j < NT; ++j)
-    if (FULL || j < nt) mma_tf32(acc[j], ah, bh[j]);
 }
 
 __device__ __forceinline__ void mma_row(float (&acc)[NT][4], const float (&a)[4],
@@ -162,10 +177,10 @@ __device__ __forceinline__ void mma_row(float (&acc)[NT][4], const float (&a)[4]
     mma_tiles<false>(acc, a, b, jstride, k4, nt);
 }
 
-// The exponent of M's decay, L_t - L_s <= 0 from L as float pairs, or -inf
-// where s > t.
+// The exponent of M's decay, L_t - L_s from L as float pairs, or -inf where
+// s > t.
 __device__ __forceinline__ float decay_exponent(float2 Lt, float2 Ls, bool keep) {
-  return keep ? fminf((Lt.x - Ls.x) + (Lt.y - Ls.y), 0.f) : -INFINITY;
+  return keep ? (Lt.x - Ls.x) + (Lt.y - Ls.y) : -INFINITY;
 }
 
 __device__ __forceinline__ void slot_barrier(int slot) {
@@ -322,10 +337,10 @@ ssd_intra_chunk_kernel(const float* __restrict__ la, const float* __restrict__ C
               const float2 Ls0 = Lh[s0], Ls1 = Lh[s1];
               const float* cb = cb0 + 8 * kb;
               // M = CB * exp(L_t - L_s) for s <= t; a masked entry (s > t)
-              // takes the exponent -inf, so exp gives 0 and never sees a
-              // positive exponent, and no branch keeps the four exps apart.
-              // __expf (ex2.approx of x log2 e) is within ~6e-6 relative
-              // down to x = -100.
+              // takes the exponent -inf, so exp gives 0 and never sees the
+              // masked L_t - L_s (positive where la < 0), and no branch
+              // keeps the four exps apart. __expf (ex2.approx of x log2 e)
+              // is within ~6e-6 relative for |x| up to 100.
               const float m[4] = {cb[0] * __expf(decay_exponent(L0, Ls0, s0 <= t0)),
                                   cb[8 * ldc] * __expf(decay_exponent(L1, Ls0, s0 <= t1)),
                                   cb[4] * __expf(decay_exponent(L0, Ls1, s1 <= t0)),

@@ -99,24 +99,26 @@ def test_decode_kernel_sweep_on_card(cuda_card, hd, G, S, window, dtype):
                                atol=tol, rtol=tol)
 
 
-@pytest.mark.parametrize("la_kind", ["small", "model"])
+@pytest.mark.parametrize("la_kind", ["small", "model", "mixed"])
 @pytest.mark.parametrize("shape", [(2, 4, 32, 8, 16, 16), (1, 2, 64, 4, 64, 64),
                                    (1, 1, 128, 2, 32, 64), (2, 3, 128, 12, 64, 64),
                                    (1, 1, 16, 1, 8, 8), (1, 2, 40, 3, 4, 12),
-                                   (2, 2, 128, 113, 64, 64)])
+                                   (2, 2, 128, 113, 64, 64), (1, 1, 128, 2, 64, 128)])
 def test_ssd_kernel_matches_plain_on_card(cuda_card, shape, la_kind):
     """One mma tile (Q 16, N = P = 8); Q, N and P off the mma tile (40, 4,
-    12); H off the head group (113). la = -|z| * 0.1 is held to the float32
-    plain version; la = -softplus(z), the model's range, where L reaches
-    ~-100 over a chunk and the float32 plain version is itself ~4e-4 off,
-    to the plain version run in float64."""
+    12); H off the head group (113); P 128 at Q 128, where two x tiles do not
+    fit in shared memory and the kernel runs one slot of 8 warps.
+    la = -|z| * 0.1 is held to the float32 plain version; la = -softplus(z),
+    the model's range, where L reaches ~-100 over a chunk and the float32
+    plain version is itself ~4e-4 off, and la = z * 0.05, with la > 0 in
+    places (exp(L_t - L_s) > 1), to the plain version run in float64."""
     B, nc, Q, H, N, P = shape
     rng = np.random.default_rng(9)
     z = rng.standard_normal((B, nc, Q, H))
-    la = -np.logaddexp(0.0, z) if la_kind == "model" else -np.abs(z) * 0.1
+    la = {"small": -np.abs(z) * 0.1, "model": -np.logaddexp(0.0, z), "mixed": z * 0.05}[la_kind]
     C, Bm = rng.standard_normal((B, nc, Q, N)), rng.standard_normal((B, nc, Q, N))
     x = rng.standard_normal((B, nc, Q, H, P))
     args = [torch.from_numpy(a.astype(np.float32)).to(cuda_card) for a in (la, C, Bm, x)]
-    want = ssd_intra_chunk_plain(*(a.double() if la_kind == "model" else a for a in args))
+    want = ssd_intra_chunk_plain(*(a.double() if la_kind != "small" else a for a in args))
     for got, want, tol in zip(ops.ssd_intra_chunk(*args), want, SSD_TOLS):
         torch.testing.assert_close(got, want.float(), atol=tol, rtol=tol)

@@ -27,9 +27,11 @@ SWEEP = [(2, 4, 32, 8, 16, 16), (1, 2, 64, 4, 64, 64), (1, 1, 128, 2, 32, 64)]
 TOL, TOL_TOT = 2e-4, 1e-5          # tests/test_kernels.py:81-83
 
 
-def _ssd_inputs(seed, B, nc, Q, H, N, P):
+def _ssd_inputs(seed, B, nc, Q, H, N, P, signed=False):
+    """la = -|z| * 0.1, or z * 0.05 (some la > 0) where ``signed``."""
     rng = np.random.default_rng(seed)
-    la = (-np.abs(rng.standard_normal((B, nc, Q, H))) * 0.1).astype(np.float32)
+    z = rng.standard_normal((B, nc, Q, H))
+    la = (z * 0.05 if signed else -np.abs(z) * 0.1).astype(np.float32)
     C, Bm = (rng.standard_normal((B, nc, Q, N)).astype(np.float32) for _ in range(2))
     x = rng.standard_normal((B, nc, Q, H, P)).astype(np.float32)
     return la, C, Bm, x
@@ -50,6 +52,19 @@ def test_ssd_intra_chunk_plain_matches_pallas(B, nc, Q, H, N, P):
         for g, w, tol in zip(got, want, (TOL, TOL, TOL_TOT)):
             assert g.shape == w.shape and g.dtype == torch.float32
             _close(g, w, tol)
+
+
+@pytest.mark.parametrize("B,nc,Q,H,N,P", SWEEP)
+def test_ssd_intra_chunk_plain_matches_pallas_with_growth(B, nc, Q, H, N, P):
+    """la > 0 in places: exp(L_t - L_s) > 1 is part of the function, and the
+    plain version (what the CUDA kernel is held to) keeps it as repro does."""
+    from repro.kernels import ops
+    arrs = _ssd_inputs(4, B, nc, Q, H, N, P, signed=True)
+    assert (arrs[0] > 0).any()
+    got = ssd_intra_chunk_plain(*(torch.from_numpy(a) for a in arrs))
+    want = ops.ssd_intra_chunk(*(jnp.asarray(a) for a in arrs))
+    for g, w, tol in zip(got, want, (TOL, TOL, TOL_TOT)):
+        _close(g, w, tol)
 
 
 # -- the mixer -------------------------------------------------------------------

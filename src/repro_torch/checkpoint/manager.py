@@ -1,9 +1,12 @@
-"""Checkpoints of nested dicts of tensors on dynamically provisioned storage.
+"""Checkpoints of trees of tensors on dynamically provisioned storage.
 
 The port of ``src/repro/checkpoint/manager.py`` with the same on-disk layout:
 one ``.npy`` per leaf named by its ``/``-joined key path (dots in the file
 name), ``manifest.json``, then a ``COMMIT`` marker (two-phase commit), and
-keep-k GC. The drain to the global FS comes with the checkpoint slice.
+keep-k GC; then the drain of a committed step to the global FS (the paper's
+stage-out), in the background or not. A tree is nested dicts, NamedTuples
+(a train state: ``OptState`` keys its leaves by field name, as JAX's
+``GetAttrKey`` does) and tuples (keyed by index).
 
 numpy has no bfloat16 without ``ml_dtypes``, so a bf16 leaf is stored as its
 raw 16-bit words (a uint16 ``.npy``) and the manifest records ``"bfloat16"``,
@@ -15,6 +18,7 @@ from __future__ import annotations
 
 import io
 import json
+import threading
 from typing import Any, Optional
 
 import numpy as np
@@ -22,22 +26,38 @@ import torch
 
 from ..core.client import FSClient
 from ..core.datamanager import DataManager, FSError
+from ..core.staging import stage
+
+
+def _children(tree) -> Optional[list[tuple[str, Any]]]:
+    """(key, child) pairs in JAX's flattening order, or None for a leaf."""
+    if isinstance(tree, dict):
+        return [(str(k), tree[k]) for k in sorted(tree)]
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return list(zip(tree._fields, tree))
+    if isinstance(tree, tuple):
+        return [(str(i), c) for i, c in enumerate(tree)]
+    return None
 
 
 def _flatten_with_paths(tree, prefix: str = "") -> list[tuple[str, Any]]:
-    """Leaves of nested dicts in JAX's order (sorted keys), with their paths."""
-    if isinstance(tree, dict):
-        out = []
-        for k in sorted(tree):
-            out += _flatten_with_paths(tree[k], f"{prefix}{k}/")
-        return out
-    return [(prefix.rstrip("/"), tree)]
+    """Leaves of a tree in JAX's order, with their ``/``-joined key paths."""
+    kids = _children(tree)
+    if kids is None:
+        return [(prefix.rstrip("/"), tree)]
+    return [x for k, c in kids for x in _flatten_with_paths(c, f"{prefix}{k}/")]
 
 
 def _unflatten_like(tree_like, leaves: dict[str, Any], prefix: str = ""):
+    kids = _children(tree_like)
+    if kids is None:
+        return leaves[prefix.rstrip("/")]
+    out = {k: _unflatten_like(c, leaves, f"{prefix}{k}/") for k, c in kids}
     if isinstance(tree_like, dict):
-        return {k: _unflatten_like(v, leaves, f"{prefix}{k}/") for k, v in tree_like.items()}
-    return leaves[prefix.rstrip("/")]
+        return {k: out[str(k)] for k in tree_like}
+    if hasattr(tree_like, "_fields"):
+        return type(tree_like)(**out)
+    return type(tree_like)(out[str(i)] for i in range(len(tree_like)))
 
 
 def _to_numpy(t: torch.Tensor) -> tuple[np.ndarray, str]:
@@ -60,12 +80,17 @@ class CheckpointManager:
         burst: DataManager,
         root: str = "/ckpt",
         *,
+        global_fs: Optional[DataManager] = None,
+        global_root: str = "/persist/ckpt",
         keep: int = 3,
     ):
         self.burst = burst
         self.client = FSClient(burst, "ckpt")
         self.root = root.rstrip("/")
+        self.global_fs = global_fs
+        self.global_root = global_root.rstrip("/")
         self.keep = keep
+        self._drains: list[threading.Thread] = []
         self.client.makedirs(self.root)
 
     # -- save -----------------------------------------------------------
@@ -146,3 +171,31 @@ class CheckpointManager:
             arr = np.load(io.BytesIO(raw), allow_pickle=False)
             out[key] = _from_numpy(arr, m["dtype"]).to(like.device)
         return _unflatten_like(tree_like, out), step
+
+    # -- drain (stage-out to the global FS) -------------------------------
+    def drain_async(self, step: int) -> threading.Thread:
+        """Start the drain off the training path; join() the returned thread
+        (or call wait_drains) before tearing the burst tier down."""
+        t = threading.Thread(target=self.drain_to_global, args=(step,),
+                             name=f"ckpt-drain-{step}", daemon=True)
+        self._drains.append(t)
+        t.start()
+        return t
+
+    def wait_drains(self) -> None:
+        for t in self._drains:
+            t.join()
+        self._drains.clear()
+
+    def drain_to_global(self, step: int) -> dict:
+        """Copy a committed step to the global FS, then commit it there."""
+        if self.global_fs is None:
+            raise FSError("no global FS configured")
+        d = self._step_dir(step)
+        names = self.client.readdir(d)
+        dst = f"{self.global_root}/step-{step:08d}"
+        pairs = [(f"{d}/{n}", f"{dst}/{n}") for n in names if n != "COMMIT"]
+        rep = stage(self.burst, self.global_fs, pairs, direction="out")
+        FSClient(self.global_fs, "ckpt-drain").write_file(f"{dst}/COMMIT", b"ok")
+        return {"files": rep.files, "bytes": rep.bytes,
+                "modeled_time_s": rep.modeled_time_s}

@@ -10,6 +10,10 @@ holding bf16 arrays widens them to float32 first and passes ``dtype``.
 ``dt_bias``, ``A_log`` and ``D`` (``src/repro/models/mamba2.py:mamba_init``).
 Those stay float32 when ``dtype`` asks for another type; the dense tree has
 none of them.
+
+``train_state_from_numpy`` carries a whole ``repro`` ``TrainState`` across
+(params, the ``OptState``'s step, fp32 master, m and v, and the error-feedback
+residuals), so that both packages can take the same training step.
 """
 
 from __future__ import annotations
@@ -32,3 +36,19 @@ def from_numpy(tree, *, device="cpu", dtype: torch.dtype | None = None):
             return t.to(device)
         return t.to(device=device, dtype=torch.float32 if key in FLOAT32_LEAVES else dtype)
     return walk(tree, "")
+
+
+def train_state_from_numpy(state, *, device="cpu", dtype: torch.dtype | None = None):
+    """A ``repro`` ``TrainState`` whose leaves are numpy arrays (bf16 ones
+    widened to float32) -> the port's ``TrainState``: params cast to
+    ``dtype`` as ``from_numpy`` does, the optimizer state and residuals in
+    float32, the step an int32 scalar."""
+    from .optim import ErrorFeedback, OptState
+    from .runtime import TrainState
+    f32 = dict(device=device, dtype=torch.float32)
+    opt = state.opt
+    new_opt = OptState(torch.tensor(np.asarray(opt.step), dtype=torch.int32, device=device),
+                       from_numpy(opt.master, **f32), from_numpy(opt.m, **f32),
+                       from_numpy(opt.v, **f32))
+    ef = ErrorFeedback(from_numpy(state.ef.residual, **f32)) if state.ef else ()
+    return TrainState(from_numpy(state.params, device=device, dtype=dtype), new_opt, ef)

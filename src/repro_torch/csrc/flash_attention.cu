@@ -8,7 +8,11 @@
 //   s = (q . k) * hd^-0.5 in float32, s = -2e38 where masked
 //   (causal: col <= row; window: col > row - window),
 //   out = softmax(s) . v with an online softmax (m, l, acc in float32),
-//   acc / l with l == 0 guarded.
+//   acc / l with l == 0 guarded,
+//   and, where the caller passes an lse pointer (training, for the backward
+//   in flash_attention_bwd.cu), lse = m + log l per row in float32 at
+//   (b, h, row); +inf for a row that met no key tile. Serving passes null and
+//   the epilogue skips the write.
 //
 // What bounds it on the H100: at the serving shapes (B 8, S = T = 512,
 // hd 112/128) the bound is near balance: ~21.5 GFLOP of causal work is
@@ -80,7 +84,7 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
 template <typename T, int HD>
 __global__ void __launch_bounds__(NTHREADS)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o,
+                 const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
                  int B, int S, int T_len, int H, int K, int causal, int window,
                  float scale) {
   constexpr int DPT = HD / 16;      // output columns per thread
@@ -221,12 +225,14 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < DPT; ++j)
       ob[(int64_t)row * q_row + tx + 16 * j] = from_f<T>(acc[i][j] * inv);
+    if (lse != nullptr && tx == 0)
+      lse[((int64_t)b * H + h) * S + row] = l[i] > 0.f ? m[i] + logf(l[i]) : INFINITY;
   }
 }
 
 template <typename T, int HD>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, int S,
-                   int T_len, int H, int K, int causal, int window, cudaStream_t stream) {
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse, int B,
+                   int S, int T_len, int H, int K, int causal, int window, cudaStream_t stream) {
   const size_t smem = sizeof(float) *
       (size_t)(BQ * (HD + 1) + BK * (HD + 1) + BK * HD + BQ * (BK + 1));
   auto kern = flash_fwd_kernel<T, HD>;
@@ -236,7 +242,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, 
   dim3 grid((S + BQ - 1) / BQ, B * H);
   kern<<<grid, NTHREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), B, S, T_len, H, K, causal, window, (float)(1.0 / sqrt((double)HD)));
+      static_cast<T*>(o), lse, B, S, T_len, H, K, causal, window,
+      (float)(1.0 / sqrt((double)HD)));
   return cudaGetLastError();
 }
 
@@ -258,6 +265,7 @@ constexpr int GROUP = 16;                     // (b, h) pairs whose q tiles run 
 constexpr int NTHREADS = 128 + 32;            // a consumer warpgroup + a producer warp
 constexpr int BOX = 64;                       // TMA box width: 128 bytes, one swizzle row
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -396,8 +404,8 @@ __global__ void __launch_bounds__(NTHREADS, 2)
 flash_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q,
                        const __grid_constant__ CUtensorMap tm_k,
                        const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ o,
-                       int B, int S, int T_len, int H, int K, int causal, int window,
-                       float scale_log2) {
+                       float* __restrict__ lse, int B, int S, int T_len, int H, int K,
+                       int causal, int window, float scale_log2) {
   constexpr int NB = (HD + BOX - 1) / BOX;          // TMA boxes per row
   constexpr int HDP = NB * BOX;                     // padded head dim (P.V's N)
   constexpr int Q_BYTES = NB * BQ * 128;
@@ -594,6 +602,12 @@ flash_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q,
       *reinterpret_cast<__nv_bfloat162*>(ob + (int64_t)row_b * q_row + col) =
           __floats2bfloat162_rn(acc[4 * j + 2] * inv_b, acc[4 * j + 3] * inv_b);
   }
+  // m is in log2 units of the scaled score: lse = (m + log2 l) ln 2
+  if (lse != nullptr && lane % 4 == 0) {
+    float* lb = lse + ((int64_t)b * H + h) * S;
+    if (row_a < S) lb[row_a] = l_a > 0.f ? (m_a + log2f(l_a)) * LN2 : INFINITY;
+    if (row_b < S) lb[row_b] = l_b > 0.f ? (m_b + log2f(l_b)) * LN2 : INFINITY;
+  }
 }
 
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -631,8 +645,8 @@ bool make_map(CUtensorMap* map, const void* ptr, int batch, int seq, int heads, 
 }
 
 template <int HD>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, int S, int T_len,
-                   int H, int K, int causal, int window, cudaStream_t stream) {
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse, int B, int S,
+                   int T_len, int H, int K, int causal, int window, cudaStream_t stream) {
   constexpr int NB = (HD + BOX - 1) / BOX;
   constexpr size_t smem = 1024 + (size_t)NB * 128 * (BQ + 2 * STAGES * BK);
   if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v) % 16 != 0) return cudaErrorInvalidValue;
@@ -645,19 +659,19 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, 
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const int grid = ((S + BQ - 1) / BQ) * B * H;
-  kern<<<grid, NTHREADS, smem, stream>>>(tq, tk, tv, static_cast<__nv_bfloat16*>(o), B, S, T_len,
-                                         H, K, causal, window,
+  kern<<<grid, NTHREADS, smem, stream>>>(tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, B, S,
+                                         T_len, H, K, causal, window,
                                          (float)(1.0 / sqrt((double)HD)) * LOG2E);
   return cudaGetLastError();
 }
 
-cudaError_t dispatch_hd(const void* q, const void* k, const void* v, void* o, int B, int S,
-                        int T_len, int H, int K, int hd, int causal, int window,
+cudaError_t dispatch_hd(const void* q, const void* k, const void* v, void* o, float* lse, int B,
+                        int S, int T_len, int H, int K, int hd, int causal, int window,
                         cudaStream_t stream) {
   switch (hd) {
-    case 64: return launch<64>(q, k, v, o, B, S, T_len, H, K, causal, window, stream);
-    case 112: return launch<112>(q, k, v, o, B, S, T_len, H, K, causal, window, stream);
-    case 128: return launch<128>(q, k, v, o, B, S, T_len, H, K, causal, window, stream);
+    case 64: return launch<64>(q, k, v, o, lse, B, S, T_len, H, K, causal, window, stream);
+    case 112: return launch<112>(q, k, v, o, lse, B, S, T_len, H, K, causal, window, stream);
+    case 128: return launch<128>(q, k, v, o, lse, B, S, T_len, H, K, causal, window, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -665,13 +679,13 @@ cudaError_t dispatch_hd(const void* q, const void* k, const void* v, void* o, in
 }  // namespace hopper
 
 template <typename T>
-cudaError_t dispatch_hd(const void* q, const void* k, const void* v, void* o, int B, int S,
-                        int T_len, int H, int K, int hd, int causal, int window,
+cudaError_t dispatch_hd(const void* q, const void* k, const void* v, void* o, float* lse, int B,
+                        int S, int T_len, int H, int K, int hd, int causal, int window,
                         cudaStream_t stream) {
   switch (hd) {
-    case 64: return launch<T, 64>(q, k, v, o, B, S, T_len, H, K, causal, window, stream);
-    case 112: return launch<T, 112>(q, k, v, o, B, S, T_len, H, K, causal, window, stream);
-    case 128: return launch<T, 128>(q, k, v, o, B, S, T_len, H, K, causal, window, stream);
+    case 64: return launch<T, 64>(q, k, v, o, lse, B, S, T_len, H, K, causal, window, stream);
+    case 112: return launch<T, 112>(q, k, v, o, lse, B, S, T_len, H, K, causal, window, stream);
+    case 128: return launch<T, 128>(q, k, v, o, lse, B, S, T_len, H, K, causal, window, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -683,16 +697,19 @@ extern "C" const char* cuda_error_string(int err) {
 }
 
 // dtype: 0 float32 (FMA kernel), 1 bfloat16 (wgmma + TMA kernel). window < 0
-// means none. q: (B,S,H,hd), k/v: (B,T,K,hd), o: (B,S,H,hd), all contiguous.
+// means none. q: (B,S,H,hd), k/v: (B,T,K,hd), o: (B,S,H,hd), all contiguous;
+// lse: null, or (B,H,S) float32 for m + log l per row.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                                   int B, int S, int T_len, int H, int K, int hd,
+                                   void* lse, int B, int S, int T_len, int H, int K, int hd,
                                    int causal, int window, int dtype, void* stream) {
   if (B <= 0 || S <= 0 || T_len <= 0 || K <= 0 || H % K != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   switch (dtype) {
-    case 0: return (int)dispatch_hd<float>(q, k, v, o, B, S, T_len, H, K, hd, causal, window, st);
+    case 0:
+      return (int)dispatch_hd<float>(q, k, v, o, l, B, S, T_len, H, K, hd, causal, window, st);
     case 1:
-      return (int)hopper::dispatch_hd(q, k, v, o, B, S, T_len, H, K, hd, causal, window, st);
+      return (int)hopper::dispatch_hd(q, k, v, o, l, B, S, T_len, H, K, hd, causal, window, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

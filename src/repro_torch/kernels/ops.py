@@ -7,6 +7,15 @@ builds or launches or raises. Nothing falls back from one to the other.
 ``LAUNCHES`` holds one integer per kernel, raised by one where its wrapper
 launches the kernel and nowhere else, so a run can show that its path went
 through every kernel (``reset_launches()`` before, read after).
+
+Training: where autograd needs a gradient of ``rmsnorm`` or
+``flash_attention`` on the card, the call goes through a
+``torch.autograd.Function`` whose forward launches the forward kernel (which
+also writes what the backward reads: each row's ``inv``, or its log-sum-exp)
+and whose backward launches the backward kernel (``rmsnorm_bwd``,
+``flash_attention_bwd``). Without a gradient (``inference_mode``, serving)
+the forward kernels launch exactly as before. On the CPU autograd runs
+through the plain versions.
 """
 
 from __future__ import annotations
@@ -16,11 +25,16 @@ from typing import Optional
 import torch
 
 from .decode_attention import decode_attention_cuda, decode_attention_plain
-from .flash_attention import flash_attention_cuda, flash_attention_plain
-from .rmsnorm import rmsnorm_plain, rmsnorm_triton
+from .flash_attention import (
+    flash_attention_bwd_cuda,
+    flash_attention_cuda,
+    flash_attention_plain,
+)
+from .rmsnorm import rmsnorm_bwd_triton, rmsnorm_plain, rmsnorm_triton
 from .ssd_scan import ssd_intra_chunk_cuda, ssd_intra_chunk_plain
 
-KERNELS = ("rmsnorm", "flash_attention", "decode_attention", "ssd_intra_chunk")
+KERNELS = ("rmsnorm", "flash_attention", "decode_attention", "ssd_intra_chunk",
+           "rmsnorm_bwd", "flash_attention_bwd")
 LAUNCHES: dict[str, int] = dict.fromkeys(KERNELS, 0)
 
 
@@ -37,10 +51,54 @@ def _on_cuda(t: torch.Tensor, what: str) -> bool:
     raise ValueError(f"{what}: no kernel or plain version for device {t.device}")
 
 
+def _wants_grad(*ts: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
+class _RMSNorm(torch.autograd.Function):
+    """The Triton forward saving each row's inv; the Triton backward."""
+
+    @staticmethod
+    def forward(ctx, x, scale, eps):
+        out, inv = rmsnorm_triton(x, scale, eps=eps, return_inv=True)
+        LAUNCHES["rmsnorm"] += 1
+        ctx.save_for_backward(x, scale, inv)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, scale, inv = ctx.saved_tensors
+        dx, dscale = rmsnorm_bwd_triton(x, scale, g.contiguous(), inv)
+        LAUNCHES["rmsnorm_bwd"] += 1
+        return dx, dscale, None
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The CUDA forward writing each row's log-sum-exp; the CUDA backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        out, lse = flash_attention_cuda(q, k, v, causal=causal, window=window, return_lse=True)
+        LAUNCHES["flash_attention"] += 1
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.window = causal, window
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd_cuda(q, k, v, out, lse, dout.contiguous(),
+                                              causal=ctx.causal, window=ctx.window)
+        LAUNCHES["flash_attention_bwd"] += 1
+        return dq, dk, dv, None, None
+
+
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-5) -> torch.Tensor:
     """y = x * rsqrt(mean(x^2, -1) + eps) * scale; x: (..., d), scale: (d,)."""
     if not _on_cuda(x, "rmsnorm"):
         return rmsnorm_plain(x, scale, eps=eps)
+    if _wants_grad(x, scale):
+        return _RMSNorm.apply(x, scale, eps)
     out = rmsnorm_triton(x, scale, eps=eps)
     LAUNCHES["rmsnorm"] += 1
     return out
@@ -51,6 +109,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q: (B,S,H,hd); k/v: (B,T,K,hd) -> (B,S,H,hd)."""
     if not _on_cuda(q, "flash_attention"):
         return flash_attention_plain(q, k, v, causal=causal, window=window)
+    if _wants_grad(q, k, v):
+        return _FlashAttention.apply(q, k, v, causal, window)
     out = flash_attention_cuda(q, k, v, causal=causal, window=window)
     LAUNCHES["flash_attention"] += 1
     return out

@@ -2,9 +2,10 @@
 PyTorch version.
 
 The kernel, ``csrc/ssd_intra_chunk.cu``, replaces the TPU kernel
-``src/repro/kernels/ssd_scan.py:ssd_intra_chunk``. On the H100 it is bound
-by operations; its three products run on the tensor cores (mma.sync, TF32
-operands split hi/lo for float32 accuracy), and its header says how. It
+``src/repro/kernels/ssd_scan.py:ssd_intra_chunk``. On the H100 its bound
+is the bytes (la, C, B and x read once, y and the states written once); its
+three products run on the tensor cores (mma.sync, TF32 operands split hi/lo
+for float32 accuracy), and its header says how. It
 reads la and x in their natural layouts (the TPU wrapper transposed both)
 and computes C . B^T once for a group of heads. The inter-chunk scan stays
 in the model code (``models/mamba2.ssd_chunked``).

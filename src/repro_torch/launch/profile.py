@@ -1,15 +1,20 @@
-"""Where the serving time goes on the card: a torch.profiler breakdown.
+"""Where the serving or training time goes on the card: a torch.profiler
+breakdown.
 
-Builds the model (qwen3-14b by default, ``--arch zamba2-7b`` for the hybrid;
-all its layers, bf16, random weights from ``--seed``), warms up, then
-profiles two windows separately: one batched prefill, and the greedy decode
-steps that follow it. For each window it prints one JSON line: host-clock
-wall time without and with the profiler, device busy time (the union of
-kernel intervals) and idle share, and device time by category (the port's
-four kernels, matrix products, everything else) and by kernel.
-Needs a CUDA device.
+Serving: builds the model (qwen3-14b by default, ``--arch zamba2-7b`` for
+the hybrid; all its layers, bf16, random weights from ``--seed``), warms up,
+then profiles two windows separately: one batched prefill, and the greedy
+decode steps that follow it. Training (``--train``): phi4-mini-3.8b by
+default at full width with ``--layers`` (default 8) layers, bf16 params and
+fp32 AdamW state, ``--batch`` x ``--seq`` tokens (4 x 2048), remat "full";
+one warm-up step, then one profiled train step. For each window it prints
+one JSON line: host-clock wall time without and with the profiler, device
+busy time (the union of kernel intervals) and idle share, and device time by
+category (the port's kernels, matrix products, everything else) and by
+kernel. Needs a CUDA device.
 
 Run:  PYTHONPATH=src python -m repro_torch.launch.profile [--arch zamba2-7b] [--layers N]
+      PYTHONPATH=src python -m repro_torch.launch.profile --train [--layers 8]
 """
 
 from __future__ import annotations
@@ -29,6 +34,8 @@ from ..models import build_model
 
 CATEGORIES = (
     ("flash_attention", re.compile(r"flash_fwd_kernel")),
+    ("flash_attention_bwd", re.compile(r"flash_bwd_kernel|bwd_dot_kernel|cast_kernel")),
+    ("rmsnorm_bwd", re.compile(r"rmsnorm_bwd_kernel|colsum_kernel")),
     ("decode_attention", re.compile(r"decode_(split|combine)_kernel")),
     ("rmsnorm", re.compile(r"rmsnorm_kernel")),
     ("ssd_intra_chunk", re.compile(r"ssd_intra_chunk_kernel")),
@@ -97,19 +104,55 @@ def profile_window(fn, device: torch.device, top: int) -> dict:
     }
 
 
+def profile_train(args, dev: torch.device) -> dict:
+    from ..data import DatasetSpec, Loader
+    from ..launch.train import to_device
+    from ..optim import AdamWConfig
+    from ..runtime import RuntimeConfig, make_train_state, make_train_step
+    cfg = dataclasses.replace(get_config(args.arch), n_layers=args.layers)
+    model = build_model(cfg)
+    rt = RuntimeConfig(remat="full", opt=AdamWConfig(lr=1e-4), schedule="constant")
+    state = {"s": make_train_state(model, torch.Generator(device=dev).manual_seed(args.seed),
+                                   rt)}
+    loader = Loader(DatasetSpec(seed=7, vocab=cfg.vocab_size, n_tokens=1 << 24),
+                    batch=args.batch, seq=args.seq)
+    step = make_train_step(model, rt)
+    batches = [to_device(loader.batch_at(i), dev) for i in range(3)]
+    state["s"], _ = step(state["s"], batches[0])                     # warm-up
+
+    def run_step():
+        state["s"], _ = step(state["s"], batches[1])
+
+    meta = {"cfg": f"{cfg.name} n_layers={cfg.n_layers} {cfg.dtype}, fp32 AdamW",
+            "B": args.batch, "S": args.seq, "remat": rt.remat,
+            "device": torch.cuda.get_device_name(dev)}
+    out = {"window": "train step", **meta, **profile_window(run_step, dev, args.top)}
+    print(json.dumps(out), flush=True)
+    return {"train step": out}
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="qwen3-14b")
-    ap.add_argument("--layers", type=int, default=None, help="cut depth (default: all)")
+    ap.add_argument("--arch", default=None,
+                    help="qwen3-14b for serving, phi4-mini-3.8b with --train")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut depth (default: all; 8 with --train)")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--prompt-len", type=int, default=512)
     ap.add_argument("--gen", type=int, default=32)
+    ap.add_argument("--train", action="store_true", help="profile one train step")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--seq", type=int, default=2048)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--top", type=int, default=12)
     args = ap.parse_args(argv)
 
     dev = resolve_device("cuda")
-    cfg = get_config(args.arch)
+    if args.train:
+        args.arch = args.arch or "phi4-mini-3.8b"
+        args.layers = args.layers or 8
+        return profile_train(args, dev)
+    cfg = get_config(args.arch or "qwen3-14b")
     if args.layers:
         cfg = dataclasses.replace(cfg, n_layers=args.layers)
     model = build_model(cfg)

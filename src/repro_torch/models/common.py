@@ -1,19 +1,22 @@
-"""Shared assembly utilities: stacked-layer init and the per-family API."""
+"""Shared assembly utilities: stacked-layer init, remat, the per-family API."""
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple
+import functools
+from typing import Callable, NamedTuple, Optional
 
 import torch
+import torch.utils.checkpoint
 
 from ..configs.base import ModelConfig
 
 
-def tree_map(fn: Callable, tree):
-    """Apply ``fn`` to every tensor leaf of nested dicts."""
+def tree_map(fn: Callable, tree, *rest):
+    """Apply ``fn`` to every tensor leaf of nested dicts (and the matching
+    leaves of ``rest``, dicts of the same structure)."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    return fn(tree)
+        return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    return fn(tree, *rest)
 
 
 def stack_init(gen: torch.Generator, n: int, fn: Callable):
@@ -37,11 +40,25 @@ def stack_init(gen: torch.Generator, n: int, fn: Callable):
     return stacked
 
 
+def remat_wrap(fn: Callable, policy: Optional[str]) -> Callable:
+    """``repro``'s remat policies on ``torch.utils.checkpoint`` (non-reentrant):
+    ``None``/``"none"`` keeps every activation; ``"full"`` keeps only the
+    wrapped function's inputs and recomputes the rest in the backward.
+    ``"dots"`` (JAX's ``dots_with_no_batch_dims_saveable``, which keeps the
+    matmul outputs) has no torch twin and is taken as ``"full"``."""
+    if policy is None or policy == "none":
+        return fn
+    if policy not in ("full", "dots"):
+        raise ValueError(f"unknown remat policy {policy!r}")
+    return functools.partial(torch.utils.checkpoint.checkpoint, fn, use_reentrant=False)
+
+
 class Model(NamedTuple):
     """Uniform per-family API (closures over a ModelConfig)."""
 
     cfg: ModelConfig
     init: Callable                    # (generator) -> params
+    loss: Callable                    # (params, batch, *, remat) -> (loss, metrics)
     prefill: Callable                 # (params, batch, S_max) -> (logits, cache)
     decode_step: Callable             # (params, cache, batch) -> (logits, cache)
     init_cache: Callable              # (B, S_max, device) -> cache dict

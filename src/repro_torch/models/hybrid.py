@@ -180,10 +180,16 @@ def init_cache(cfg: ModelConfig, B: int, S_max: int, device=None):
     return cache
 
 
+def loss_fn(params, batch, cfg: ModelConfig, *, remat=None):
+    raise NotImplementedError("hybrid (zamba2) training is not ported yet: it needs a "
+                              "backward kernel for ssd_intra_chunk and blockwise_sdpa")
+
+
 def build(cfg: ModelConfig) -> Model:
     return Model(
         cfg=cfg,
         init=functools.partial(init, cfg=cfg),
+        loss=functools.partial(loss_fn, cfg=cfg),
         prefill=functools.partial(prefill, cfg=cfg),
         decode_step=functools.partial(decode_step, cfg=cfg),
         init_cache=functools.partial(init_cache, cfg),

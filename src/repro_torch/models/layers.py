@@ -1,18 +1,20 @@
 """Shared neural-net primitives (plain functions on dict params of tensors).
 
-The port of ``src/repro/models/layers.py`` for the serving path. ``norm`` and
-``head_rmsnorm`` go through ``kernels.ops.rmsnorm``: the Triton kernel on a
-CUDA tensor, the plain version on a CPU one.
+The port of ``src/repro/models/layers.py``. ``norm`` and ``head_rmsnorm`` go
+through ``kernels.ops.rmsnorm``: the Triton kernels on a CUDA tensor (forward,
+and the backward where autograd needs it), the plain version on a CPU one.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
 from ..kernels import ops
-from ..kernels.rmsnorm import rmsnorm_plain
+from ..kernels.rmsnorm import rmsnorm_bwd_plain, rmsnorm_plain
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
 
@@ -66,6 +68,32 @@ def norm(p, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     return ops.rmsnorm(x, p["scale"], eps=eps)
 
 
+class _RMSNormBf16Bwd(torch.autograd.Function):
+    """Plain rmsnorm with ``repro``'s ``_rms_bwd`` as its backward."""
+
+    @staticmethod
+    def forward(ctx, scale, x, eps):
+        ctx.save_for_backward(scale, x)
+        ctx.eps = eps
+        return rmsnorm_plain(x, scale, eps=eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        scale, x = ctx.saved_tensors
+        dx, dscale = rmsnorm_bwd_plain(x, scale, g, eps=ctx.eps)
+        return dscale, dx, None
+
+
+def rmsnorm_bf16bwd(scale: torch.Tensor, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """rmsnorm whose backward emits dx in the INPUT dtype (``repro``'s custom
+    VJP, ``layers.py:52-83``). On the card this is what ``kernels.ops.rmsnorm``
+    already does under autograd (the Triton backward casts dx to x's dtype);
+    on the CPU the plain forward with the plain ``_rms_bwd``."""
+    if x.device.type == "cuda":
+        return ops.rmsnorm(x, scale, eps=eps)
+    return _RMSNormBf16Bwd.apply(scale, x, eps)
+
+
 def head_rmsnorm(scale: torch.Tensor, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """qk-norm: normalize over the head dim. x: (..., hd), scale: (hd,)."""
     return ops.rmsnorm(x, scale, eps=eps)
@@ -104,3 +132,30 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
     c = cos[None, :, None, :]
     s = sin[None, :, None, :]
     return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1).to(dt)
+
+
+def sinusoid_embed(S: int, d: int, device=None) -> torch.Tensor:
+    """Whisper-style fixed sinusoidal positional embeddings (S, d), float32."""
+    pos = torch.arange(S, dtype=torch.float32, device=device)[:, None]
+    dim = torch.arange(d // 2, dtype=torch.float32, device=device)[None, :]
+    ang = pos / (10000.0 ** (2 * dim / d))
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+def softcap(x: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
+    if not cap:
+        return x
+    return cap * torch.tanh(x / cap)
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor, *,
+                       ignore_index: int = -100) -> torch.Tensor:
+    """Mean next-token CE over non-ignored positions, float32 logsumexp over
+    the whole (padded) vocab. logits (B,S,V), labels (B,S)."""
+    valid = labels != ignore_index
+    labels_safe = torch.where(valid, labels, torch.zeros_like(labels))
+    lf = logits.float()
+    logz = torch.logsumexp(lf, dim=-1)
+    gold = torch.gather(lf, -1, labels_safe[..., None].long())[..., 0]
+    nll = (logz - gold) * valid
+    return nll.sum() / valid.sum().clamp_min(1)

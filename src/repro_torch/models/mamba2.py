@@ -121,7 +121,9 @@ def mamba_forward(p, x: torch.Tensor, cfg: ModelConfig, *, cache: MambaCache | N
     z, xBC, dt_raw = torch.split(zxbcdt, [di, di + 2 * N, H], dim=-1)
 
     if cache is None:
-        conv_tail = xBC[:, -(W - 1):, :]
+        # the last W-1 conv inputs, left-padded with the zeros _causal_conv
+        # pads with when the prompt is shorter than W-1
+        conv_tail = F.pad(xBC, (0, 0, max(0, W - 1 - S), 0))[:, -(W - 1):, :]
         xBC = F.silu(_causal_conv(xBC, p["conv_w"], p["conv_b"]))
     else:
         if S != 1:

@@ -1,10 +1,12 @@
-"""Decoder-only transformer LM, family ``"dense"``: init, prefill, decode.
+"""Decoder-only transformer LM, family ``"dense"``: init, loss, prefill, decode.
 
-The port of ``src/repro/models/transformer.py`` for the serving path. Params
-keep the JAX key paths and stacked leading layer dim (``layers/attn/wq/w`` is
-(L, d, H*hd)); the ``lax.scan`` over layers is a loop over that dim.
-MoE, the gemma3 local/global pattern, the VLM prefix and the training loss
-are later slices.
+The port of ``src/repro/models/transformer.py``. Params keep the JAX key
+paths and stacked leading layer dim (``layers/attn/wq/w`` is (L, d, H*hd));
+the ``lax.scan`` over layers is a loop over that dim, through views from one
+``unbind`` (whose backward stacks the per-layer grads once). ``loss_fn`` runs
+under autograd: on the card the norms and attention launch the forward and
+backward kernels (``kernels.ops``). MoE, the gemma3 local/global pattern and
+the VLM prefix are later slices.
 """
 
 from __future__ import annotations
@@ -16,8 +18,9 @@ import torch
 
 from ..configs.base import ModelConfig
 from .attention import KVCache, attention, attn_init
-from .common import Model, stack_init, tree_map
+from .common import Model, remat_wrap, stack_init
 from .layers import (
+    cross_entropy_loss,
     dtype_of,
     embed,
     embed_init,
@@ -54,8 +57,12 @@ def _layer_apply(lp, x, cfg: ModelConfig, *, positions, theta: float,
     return x + swiglu(lp["mlp"], y), kv
 
 
-def _layer(params, i: int):
-    return tree_map(lambda a: a[i], params["layers"])
+def _unstack(tree, n: int) -> list:
+    """Stacked params (leading dim ``n``) -> ``n`` per-layer trees of views."""
+    if isinstance(tree, dict):
+        per = {k: _unstack(v, n) for k, v in tree.items()}
+        return [{k: per[k][i] for k in per} for i in range(n)]
+    return list(tree.unbind(0))
 
 
 # ---------------------------------------------------------------------------
@@ -81,14 +88,44 @@ def _logits(params, h):
 
 
 # ---------------------------------------------------------------------------
+# forward core (train / prefill share this)
+# ---------------------------------------------------------------------------
+def _forward(params, cfg: ModelConfig, x, positions, *, want_cache: bool,
+             remat: Optional[str] = None):
+    """x: (B, S, d) embedded input. Returns (hidden, per-layer KVCache list
+    or None)."""
+    def layer_fn(lp, x):
+        return _layer_apply(lp, x, cfg, positions=positions, theta=cfg.rope_theta,
+                            window=cfg.sliding_window)
+
+    layer_fn = remat_wrap(layer_fn, remat)
+    kvs = []
+    for lp in _unstack(params["layers"], cfg.n_layers):
+        x, kv = layer_fn(lp, x)
+        if want_cache:
+            kvs.append(kv)
+    return x, (kvs if want_cache else None)
+
+
+# ---------------------------------------------------------------------------
 # public API
 # ---------------------------------------------------------------------------
+def loss_fn(params, batch, cfg: ModelConfig, *, remat: Optional[str] = None):
+    """Mean next-token cross entropy of ``batch["tokens"]`` against
+    ``batch["labels"]`` (-100 ignored). Returns (loss, {"ce", "aux"})."""
+    x = embed(params["embed"], batch["tokens"])
+    positions = torch.arange(x.shape[1], device=x.device)
+    h, _ = _forward(params, cfg, x, positions, want_cache=False, remat=remat)
+    h = norm(params["final_norm"], h, cfg.norm_eps)
+    ce = cross_entropy_loss(_logits(params, h), batch["labels"])
+    return ce, {"ce": ce, "aux": torch.zeros((), device=ce.device)}
+
+
 @torch.inference_mode()
 def prefill(params, batch, S_max: int, cfg: ModelConfig):
     """Run the prompt, return (last-position logits, decode cache).
 
-    The cache is {"k", "v": (L, B, S_max, K, hd), "pos": 0-dim int32}, each
-    layer's k/v written into it as the layer runs.
+    The cache is {"k", "v": (L, B, S_max, K, hd), "pos": 0-dim int32}.
     """
     tokens = batch["tokens"]
     x = embed(params["embed"], tokens)
@@ -96,11 +133,9 @@ def prefill(params, batch, S_max: int, cfg: ModelConfig):
     if S > S_max:
         raise ValueError(f"prompt length {S} > S_max {S_max}")
     device = x.device
-    positions = torch.arange(S, device=device)
+    x, kvs = _forward(params, cfg, x, torch.arange(S, device=device), want_cache=True)
     cache = init_cache(cfg, B, S_max, device)
-    for i in range(cfg.n_layers):
-        x, kv = _layer_apply(_layer(params, i), x, cfg, positions=positions,
-                             theta=cfg.rope_theta, window=cfg.sliding_window)
+    for i, kv in enumerate(kvs):
         cache["k"][i, :, :S] = kv.k
         cache["v"][i, :, :S] = kv.v
     h = norm(params["final_norm"], x, cfg.norm_eps)
@@ -120,9 +155,9 @@ def decode_step(params, cache, batch, cfg: ModelConfig):
     x = embed(params["embed"], tok[:, None])
     pos = cache["pos"]
     positions = pos.reshape(1)
-    for i in range(cfg.n_layers):
+    for i, lp in enumerate(_unstack(params["layers"], cfg.n_layers)):
         x, _ = _layer_apply(
-            _layer(params, i), x, cfg, positions=positions, theta=cfg.rope_theta,
+            lp, x, cfg, positions=positions, theta=cfg.rope_theta,
             window=cfg.sliding_window, cache=KVCache(cache["k"][i], cache["v"][i]),
             cache_pos=pos,
         )
@@ -145,6 +180,7 @@ def build(cfg: ModelConfig) -> Model:
     return Model(
         cfg=cfg,
         init=functools.partial(init, cfg=cfg),
+        loss=functools.partial(loss_fn, cfg=cfg),
         prefill=functools.partial(prefill, cfg=cfg),
         decode_step=functools.partial(decode_step, cfg=cfg),
         init_cache=functools.partial(init_cache, cfg),

@@ -141,6 +141,21 @@ def test_decode_matches_full_forward(pair):
     assert _rel(logits, full) < 2e-2
 
 
+@pytest.mark.parametrize("prompt", [1, 2])
+def test_short_prompt_decode_matches_full_forward(pair, prompt):
+    """Prompts shorter than the conv's W-1 = 3 rows: the conv cache holds the
+    zeros the causal conv pads with. repro raises at these lengths, so the
+    port's own full forward over prompt + 3 decoded tokens is the oracle,
+    within 2e-2 of max|logit| (tests/test_models.py:89)."""
+    _, _, _, tmodel, tparams, toks = pair
+    t = torch.from_numpy(toks[:, :prompt + 3]).long()
+    _, cache = tmodel.prefill(tparams, {"tokens": t[:, :prompt]}, prompt + 3)
+    for i in range(3):
+        logits, cache = tmodel.decode_step(tparams, cache, {"token": t[:, prompt + i]})
+    full, _ = tmodel.prefill(tparams, {"tokens": t}, prompt + 3)
+    assert _rel(logits, full) < 2e-2
+
+
 def test_bf16_prefill_close_to_repro(pair):
     """bf16 weights and activations, the published config's dtype. Both
     frameworks round at different points (XLA's CPU backend keeps excess

@@ -267,7 +267,8 @@ def kernel_cases(torch):
             flops=4 * Bq * H * hd * pairs, main=main))
 
     # backward kernels: the phi4-mini-3.8b training shapes, then a window, a
-    # ragged S, hd 112 (zamba2's shared block, MHA) and hd 64 with G = 4
+    # ragged S, hd 112 (zamba2's shared block, MHA), hd 64 with G = 4, and a
+    # second 128-key tile holding one key under a window shorter than a tile
     def flash_bwd_make(Bq, S, H, K, hd, window):
         def make(dtype):
             g = torch.Generator(device=dev).manual_seed(4)
@@ -295,7 +296,8 @@ def kernel_cases(torch):
     for Bq, S, H, K, hd, window, main in [
             (TRAIN_B, TRAIN_S, 24, 8, 128, None, PHI), (2, 1024, 24, 8, 128, 256, None),
             (2, 1000, 24, 8, 128, None, None), (2, 512, 32, 32, 112, None, None),
-            (2, 300, 16, 4, 64, None, None), (2, 65, 24, 8, 128, 64, None)]:
+            (2, 300, 16, 4, 64, None, None), (2, 65, 24, 8, 128, 64, None),
+            (2, 129, 24, 8, 128, 64, None)]:
         pairs = sum(min(r + 1, window or r + 1) for r in range(S))
         cases.append(dict(
             kernel="flash_attention_bwd",

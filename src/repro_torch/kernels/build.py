@@ -2,9 +2,11 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and compiles on its own
 into ``build/kernels/<name>-<hash>.so`` at the repository root, the hash taken
-over the source, so an edited source never loads a stale library and an
-unchanged one is built once. ``build_all()`` starts one ``nvcc`` per source,
-all at once; ``library(name)`` builds what is missing and loads it.
+over the source and every ``csrc`` header it includes (``#include "x.cuh"``,
+followed through headers), so an edited source or header never loads a stale
+library and an unchanged one is built once. ``build_all()`` starts one
+``nvcc`` per source, all at once; ``library(name)`` builds what is missing
+and loads it.
 """
 
 from __future__ import annotations
@@ -12,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -22,6 +25,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
 
@@ -39,9 +43,26 @@ def _nvcc() -> str:
                        "the CUDA toolkit is installed")
 
 
+def _local_includes(path: Path) -> list[Path]:
+    """The headers next to ``path`` that it includes, directly or through
+    another such header, each once, in the order first met."""
+    found: list[Path] = []
+    todo = [path]
+    while todo:
+        for inc in _INCLUDE.findall(todo.pop(0).read_text()):
+            header = path.parent / inc
+            if header.exists() and header not in found:
+                found.append(header)
+                todo.append(header)
+    return found
+
+
 def _target(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    src = CSRC / f"{name}.cu"
+    h = hashlib.sha256()
+    for p in (src, *_local_includes(src)):
+        h.update(p.read_bytes())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def build_all(names: list[str] | None = None) -> dict[str, Path]:

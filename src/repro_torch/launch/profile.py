@@ -34,7 +34,7 @@ from ..models import build_model
 
 CATEGORIES = (
     ("flash_attention", re.compile(r"flash_fwd_kernel")),
-    ("flash_attention_bwd", re.compile(r"flash_bwd_kernel|bwd_dot_kernel|cast_kernel")),
+    ("flash_attention_bwd", re.compile(r"flash_bwd_kernel|bwd_prep_kernel|cast_kernel")),
     ("rmsnorm_bwd", re.compile(r"rmsnorm_bwd_kernel|colsum_kernel")),
     ("decode_attention", re.compile(r"decode_(split|combine)_kernel")),
     ("rmsnorm", re.compile(r"rmsnorm_kernel")),

@@ -4,7 +4,9 @@ tolerances of tests/test_kernels.py, for the attention shapes of qwen3-14b
 lengths and windows over both attention kernels (bf16 runs the wgmma/TMA and
 cp.async kernels, float32 the FMA kernels), and the SSD sweep. The backward
 kernels (flash attention, rmsnorm) against their plain versions, at 2e-2
-(bf16) and 1e-4 (float32) of max|grad|, and through ``kernels.ops``' autograd
+(bf16) and 1e-4 (float32) of max|grad|, with the flash backward's tile
+edges (128-key tiles, the 2-stage ring, hd 112's padding, a one-row grid)
+and two calls held to each other, and through ``kernels.ops``' autograd
 Functions; the hybrid's short prompts on the card; serving's launches
 unchanged under ``inference_mode``. Every test here
 carries the ``cuda`` marker and skips without a card. The file imports no JAX,
@@ -170,6 +172,52 @@ def test_flash_bwd_kernel_sweep_on_card(cuda_card, hd, G, S, window, dtype):
         assert g.dtype == td and g.shape == w.shape
         scale = top if S == 1 else None
         assert _rel_err(g, w, scale) < GRAD_TOL[dtype], name
+
+
+def _bwd_case(dev, B, S, G, K, hd, window, dtype, seed=7):
+    """Inputs, the forward's o and the plain lse for one backward case."""
+    q, k, v, do = _card_inputs(dev, [(B, S, K * G, hd), (B, S, K, hd), (B, S, K, hd),
+                                     (B, S, K * G, hd)], dtype, seed)
+    lse = flash_attention_lse_plain(q, k, window=window)
+    o = flash_attention_plain(q, k, v, window=window).contiguous()
+    return q, k, v, o, lse, do
+
+
+@ATTN_DTYPE
+@pytest.mark.parametrize("B,S,G,K,hd,window", [
+    (2, 127, 1, 2, 128, None),      # one kv tile of 128 keys, its last key ragged
+    (2, 129, 3, 2, 128, None),      # a second kv tile holding one key
+    (2, 257, 4, 2, 128, None),      # 5 q tiles: the 2-stage ring wraps an odd number of times
+    (2, 257, 3, 2, 128, 64),        # a window shorter than a 128-key tile
+    (2, 200, 3, 2, 112, None),      # S off the 64-row q tile at G 3, hd 112's padded columns
+    (2, 200, 3, 2, 112, 64),
+    (1, 300, 3, 1, 128, None),      # B K = 1: the grid is one row of kv tiles
+    (1, 129, 2, 1, 64, 64),         # hd 64 (64-key tiles, one consumer warpgroup)
+])
+def test_flash_bwd_kernel_tile_edges_on_card(cuda_card, B, S, G, K, hd, window, dtype):
+    """The edges that 128-key kv tiles, a 2-stage (Q, dO) ring and dQ added
+    by 64 x 32 bulk reductions create, against the plain backward."""
+    td = DTYPES[dtype]
+    q, k, v, o, lse, do = _bwd_case(cuda_card, B, S, G, K, hd, window, td)
+    got = flash_attention_bwd_cuda(q, k, v, o, lse, do, window=window)
+    want = flash_attention_bwd_plain(q, k, v, o, lse, do, window=window)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == td and g.shape == w.shape
+        assert _rel_err(g, w) < GRAD_TOL[dtype], name
+
+
+@ATTN_DTYPE
+def test_flash_bwd_kernel_repeats_within_tolerance(cuda_card, dtype):
+    """Two calls on the same inputs: dk and dv are summed in a fixed order
+    in registers and agree bit for bit; dq is added by reductions whose
+    order varies from run to run, so the two are held to each other within
+    the stated tolerance, not bit for bit."""
+    td = DTYPES[dtype]
+    q, k, v, o, lse, do = _bwd_case(cuda_card, 2, 600, 3, 2, 128, None, td, seed=11)
+    first = flash_attention_bwd_cuda(q, k, v, o, lse, do)
+    second = flash_attention_bwd_cuda(q, k, v, o, lse, do)
+    assert torch.equal(first[1], second[1]) and torch.equal(first[2], second[2])
+    assert _rel_err(second[0], first[0]) < GRAD_TOL[dtype]
 
 
 @ATTN_DTYPE

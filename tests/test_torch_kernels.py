@@ -303,3 +303,44 @@ def test_decode_argument_packing_matches_c(dtype):
     assert got["part"] == scratch.data_ptr() and got["o"] == out.data_ptr()
     differ = [n for n, a, b in zip(names, *packs) if a != b]
     assert differ == ["kv_len"]
+
+
+def _csrc_copy(tmp_path, monkeypatch):
+    """The build module pointed at a copy of csrc in a temporary directory."""
+    import shutil
+    from repro_torch.kernels import build
+    csrc = tmp_path / "csrc"
+    shutil.copytree(build.CSRC, csrc)
+    monkeypatch.setattr(build, "CSRC", csrc)
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "build")
+    return build, csrc
+
+
+@pytest.mark.parametrize("edited,moved", [
+    ("sm90.cuh", {"flash_attention", "flash_attention_bwd"}),
+    ("flash_attention_bwd.cu", {"flash_attention_bwd"}),
+    ("decode_attention.cu", {"decode_attention"}),
+])
+def test_build_target_follows_included_headers(tmp_path, monkeypatch, edited, moved):
+    """A library's path hashes its source and the csrc headers it includes:
+    editing the shared Hopper header moves both flash libraries and no other,
+    editing a source moves only its own."""
+    build, csrc = _csrc_copy(tmp_path, monkeypatch)
+    before = {n: build._target(n) for n in build.sources()}
+    with open(csrc / edited, "a") as f:
+        f.write("\n// edited\n")
+    after = {n: build._target(n) for n in build.sources()}
+    assert {n for n in before if before[n] != after[n]} == moved
+    assert all(p.parent == tmp_path / "build" for p in after.values())
+
+
+def test_build_sources_are_the_cu_files(tmp_path, monkeypatch):
+    """``sources()`` names each .cu once and no header; the flash sources
+    include sm90.cuh, the others no local header."""
+    build, csrc = _csrc_copy(tmp_path, monkeypatch)
+    assert build.sources() == ["decode_attention", "flash_attention", "flash_attention_bwd",
+                               "ssd_intra_chunk"]
+    assert (csrc / "sm90.cuh").exists()
+    for name in build.sources():
+        want = [csrc / "sm90.cuh"] if name.startswith("flash") else []
+        assert build._local_includes(csrc / f"{name}.cu") == want

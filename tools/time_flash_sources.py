@@ -6,8 +6,9 @@ or (``--bwd``) the backward at phi4-mini-3.8b's training shape.
 Each given ``.cu`` is a copy of ``src/repro_torch/csrc/flash_attention.cu``,
 with or without the ``lse`` pointer in its C interface (the source is read
 to tell which); each is built with the port's nvcc flags into
-``build/time_flash/``, one nvcc each, all at once, checked once against the
-plain version (bf16, 2e-2), then timed in turns (A B ... B A, ``--rounds``
+``build/time_flash/`` (``csrc`` on the include path, for ``sm90.cuh``), one
+nvcc each, all at once, checked once against the plain version (bf16,
+2e-2), then timed in turns (A B ... B A, ``--rounds``
 times) with no lse written, as serving calls it, by CUDA events over
 back-to-back launches at the qwen3-14b (B 8, S 512, H 40, K 8, hd 128) and
 zamba2-7b (B 8, S 512, H 32, K 32, hd 112) prefill shapes. With ``--bwd``
@@ -42,7 +43,9 @@ def build(paths: list[str]) -> list[str]:
     out_dir = os.path.join(ROOT, "build", "time_flash")
     os.makedirs(out_dir, exist_ok=True)
     outs = [os.path.join(out_dir, f"v{i}.so") for i in range(len(paths))]
-    procs = [subprocess.Popen([kbuild._nvcc(), *kbuild.NVCC_FLAGS, "-o", o, p],
+    # -I: a copy outside csrc still finds the shared header csrc/sm90.cuh
+    procs = [subprocess.Popen([kbuild._nvcc(), *kbuild.NVCC_FLAGS, "-I", str(kbuild.CSRC),
+                               "-o", o, p],
                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
              for p, o in zip(paths, outs)]
     for p, proc in zip(paths, procs):

@@ -5,8 +5,9 @@ Phases, each printing one JSON line to stdout:
 
   build      compile every CUDA source with nvcc (one process each, in parallel)
   kernel     each kernel against its plain PyTorch version on the card, at the
-             shapes the qwen3-14b and zamba2-7b serving paths and the
-             phi4-mini-3.8b training path give it: bf16 (tolerance 2e-2) and
+             shapes the qwen3-14b, zamba2-7b and qwen3-moe-30b-a3b serving
+             paths and the phi4-mini-3.8b and granite-moe-1b-a400m training
+             paths give it: bf16 (tolerance 2e-2) and
              float32 (2e-5, TF32 off); ssd_intra_chunk float32 only, 2e-4 on y
              and state and 1e-5 on tot; the backward kernels (flash_attention_bwd,
              rmsnorm_bwd) at 2e-2 (bf16) and 1e-4 (float32) of each output's
@@ -15,27 +16,33 @@ Phases, each printing one JSON line to stdout:
              backward) times
   reference  card kernel path against the CPU plain path, same weights:
              qwen3-14b widths with 2 layers, zamba2-7b widths with 7 layers
-             (a group of 6 and a tail of 1), float32
+             (a group of 6 and a tail of 1), float32; qwen3-moe-30b-a3b widths
+             with 2 layers, float32, held per routing call (router logits,
+             and the experts fed the same routing on both sides) and on the
+             rows whose routes agree (``run_moe_reference_phase``)
   staged     ``repro_torch.launch.serve.serve`` publish -> stage through the
              burst tier -> restore -> prefill 8 x 512 -> decode 32 tokens:
              qwen3-14b with 2 layers (~4.4 GB staged), zamba2-7b with 7
-             layers (~2.0 GB)
-  full       qwen3-14b (40 layers) and zamba2-7b (81 layers), bf16, weights
-             from a seeded generator on the card, no staging: the same batch,
-             timed
-  train ref  phi4-mini-3.8b widths with 2 layers, float32, B 2, S 200: loss and
-             every grad leaf of the card's kernel path against the CPU plain
-             path (1e-4, 1e-4 of max|g|), then one train step on each (params
-             within 1e-5 of their max)
+             layers (~2.0 GB), qwen3-moe-30b-a3b with 2 layers (~3.7 GB)
+  full       qwen3-14b (40 layers), zamba2-7b (81 layers) and qwen3-moe-30b-a3b
+             (48 layers, ~61 GB), bf16, weights from a seeded generator on the
+             card, no staging: the same batch, timed
+  train ref  phi4-mini-3.8b and granite-moe-1b-a400m widths with 2 layers,
+             float32, B 2, S 200: loss and every grad leaf of the card's kernel
+             path against the CPU plain path (1e-4, 1e-4 of max|g|), then one
+             train step on each (params within 1e-5 of their max); for MoE
+             the CPU side takes the card's expert ids
   train staged  ``repro_torch.launch.train.train`` on the smoke phi4-mini-3.8b
-             (head dim 64, the kernels' smallest): corpus staged into the burst
-             tier, 6 steps, checkpoints saved and drained, held batch improved
-  train full phi4-mini-3.8b at full width, 8 of 32 layers, bf16 params and fp32
-             AdamW state, B 4, S 2048, remat "full": a warm-up step, then 5
-             timed steps on Loader batches
+             and granite-moe-1b-a400m (head dim 64, the kernels' smallest):
+             corpus staged into the burst tier, 6 steps, checkpoints saved and
+             drained, held batch improved
+  train full phi4-mini-3.8b (8 of 32 layers) and granite-moe-1b-a400m (all 24
+             layers) at full width, bf16 params and fp32 AdamW state, B 4,
+             S 2048, remat "full": a warm-up step, then 5 timed steps on
+             Loader batches
   kernels    per kernel: launches in every staged, full and training run,
              error, times, bound; each run's launch counts must equal what its
-             path implies
+             path implies (MoE launches the same kernels as dense)
 
 Then the card's name and power limit, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before that.
@@ -45,6 +52,7 @@ Run from the repository root:  python3 chip_smoke.py
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -68,7 +76,9 @@ GRAD_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 SSD_TOLS = (2e-4, 2e-4, 1e-5)      # y, state, tot (tests/test_kernels.py:81-83)
 B, PROMPT, GEN = 8, 512, 32
 QWEN, ZAMBA, PHI = "qwen3-14b", "zamba2-7b", "phi4-mini-3.8b"
-TRAIN_B, TRAIN_S, TRAIN_LAYERS, TRAIN_STEPS = 4, 2048, 8, 5
+QMOE, GRAN = "qwen3-moe-30b-a3b", "granite-moe-1b-a400m"
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 4, 2048, 5
+TRAIN_LAYERS = {PHI: 8, GRAN: 24}          # phi4-mini cut to 8 of 32; granite at full depth
 
 
 def emit(obj) -> None:
@@ -204,7 +214,8 @@ def kernel_cases(torch):
 
     for shape, main in [((B * PROMPT, 5120), QWEN), ((B * PROMPT * 40, 128), None),
                         ((B * PROMPT, 3584), ZAMBA), ((B * PROMPT, 7168), None),
-                        ((TRAIN_B * TRAIN_S, 3072), PHI),
+                        ((TRAIN_B * TRAIN_S, 3072), PHI), ((B * PROMPT, 2048), QMOE),
+                        ((TRAIN_B * TRAIN_S, 1024), GRAN),
                         ((2, 33, 128), None), ((1, 1, 512), None)]:
         def make(dtype, shape=shape):
             g = torch.Generator(device=dev).manual_seed(3)
@@ -249,9 +260,11 @@ def kernel_cases(torch):
             # edges: shorter than a q tile, a ragged second tile, hd 64 with G = 8
             (2, 17, 40, 8, 128, None, None), (2, 65, 40, 8, 128, None, None),
             (2, 17, 32, 32, 112, None, None), (2, 65, 32, 32, 112, 64, None),
-            (2, 300, 64, 8, 64, None, None), (2, 65, 64, 8, 64, 64, None)]:
+            (2, 300, 64, 8, 64, None, None), (2, 65, 64, 8, 64, 64, None),
+            # qwen3-moe prefill (G 8) and granite training (hd 64, G 2)
+            (B, PROMPT, 32, 4, 128, None, QMOE), (TRAIN_B, TRAIN_S, 16, 8, 64, None, GRAN)]:
         pairs = sum(min(r + 1, window or r + 1) for r in range(S))   # valid (row, col)
-        lse = main == PHI              # training writes each row's lse for the backward
+        lse = main in TRAIN_LAYERS     # training writes each row's lse for the backward
         cases.append(dict(
             kernel="flash_attention", desc={"B": Bq, "S": S, "T": S, "H": H, "K": K,
                                             "hd": hd, "causal": True, "window": window,
@@ -297,7 +310,7 @@ def kernel_cases(torch):
             (TRAIN_B, TRAIN_S, 24, 8, 128, None, PHI), (2, 1024, 24, 8, 128, 256, None),
             (2, 1000, 24, 8, 128, None, None), (2, 512, 32, 32, 112, None, None),
             (2, 300, 16, 4, 64, None, None), (2, 65, 24, 8, 128, 64, None),
-            (2, 129, 24, 8, 128, 64, None)]:
+            (2, 129, 24, 8, 128, 64, None), (TRAIN_B, TRAIN_S, 16, 8, 64, None, GRAN)]:
         pairs = sum(min(r + 1, window or r + 1) for r in range(S))
         cases.append(dict(
             kernel="flash_attention_bwd",
@@ -330,7 +343,8 @@ def kernel_cases(torch):
         return make
 
     for shape, main in [((TRAIN_B * TRAIN_S, 3072), PHI), ((B * PROMPT * 40, 128), None),
-                        ((B * PROMPT, 5120), None), ((2, 33, 3072), None)]:
+                        ((B * PROMPT, 5120), None), ((2, 33, 3072), None),
+                        ((TRAIN_B * TRAIN_S, 1024), GRAN)]:
         n = math.prod(shape)
         cases.append(dict(
             kernel="rmsnorm_bwd", desc={"shape": list(shape)}, make=rms_bwd_make(shape),
@@ -343,13 +357,14 @@ def kernel_cases(torch):
             nbytes=lambda isz, n=n, d=shape[-1]: 3 * n * isz + 4 * (n // d) + 2 * d * isz,
             flops=8 * n, main=main))
 
-    T = PROMPT + GEN
-    decode_shapes = [(40, 8, 128, kv_len, window)
+    T, mid = PROMPT + GEN, PROMPT + GEN // 2      # mid: the main path's middle decode step
+    decode_shapes = [(40, 8, 128, kv_len, window, None)
                      for kv_len in (1, 37, 300, T) for window in (None, 64)]
-    decode_shapes += [(40, 8, 128, PROMPT + GEN // 2, None), (32, 32, 112, 1, None),
-                      (32, 32, 112, 300, None), (32, 32, 112, PROMPT + GEN // 2, None),
-                      (32, 32, 112, 17, None), (32, 32, 112, T, None), (32, 32, 112, 17, 64)]
-    for H, K, hd, kv_len, window in decode_shapes:
+    decode_shapes += [(40, 8, 128, mid, None, QWEN), (32, 32, 112, 1, None, None),
+                      (32, 32, 112, 300, None, None), (32, 32, 112, mid, None, ZAMBA),
+                      (32, 32, 112, 17, None, None), (32, 32, 112, T, None, None),
+                      (32, 32, 112, 17, 64, None), (32, 4, 128, mid, None, QMOE)]
+    for H, K, hd, kv_len, window, main in decode_shapes:
         def make(dtype, H=H, K=K, hd=hd, kv_len=kv_len, window=window):
             g = torch.Generator(device=dev).manual_seed(1)
             a = {"q": randn(g, (B, 1, H, hd), dtype), "k": randn(g, (B, T, K, hd), dtype),
@@ -361,7 +376,6 @@ def kernel_cases(torch):
             a["lv"] = a["v"][:, lo:kv_len].repeat_interleave(H // K, dim=2).transpose(1, 2)
             return a
         valid = kv_len if window is None else min(kv_len, window)
-        main = (QWEN if hd == 128 else ZAMBA) if kv_len == PROMPT + GEN // 2 else None
         cases.append(dict(
             kernel="decode_attention",
             desc={"B": B, "T": T, "H": H, "K": K, "hd": hd, "kv_len": kv_len,
@@ -478,7 +492,7 @@ def run_kernel_phase(torch) -> dict:
 
 # -- model phases ----------------------------------------------------------------
 def expected_launches(cfg, gen: int) -> dict:
-    """One prefill and gen - 1 decode steps. Dense: flash L per prefill,
+    """One prefill and gen - 1 decode steps. Dense and MoE: flash L per prefill,
     decode L per step, rmsnorm 2L + 1 layer norms (and 2L qk-norms) per
     forward. Hybrid (ng shared-block sites): flash ng per prefill, decode ng
     per step, rmsnorm 2L + 2ng + 1 per forward, ssd L per prefill."""
@@ -494,7 +508,7 @@ def expected_launches(cfg, gen: int) -> dict:
 
 def expected_train_launches(cfg, steps: int, evals: int, remat: bool) -> dict:
     """``steps`` train steps and ``evals`` no-grad loss evaluations of a dense
-    model: a step runs each layer's forward once, and once more in the
+    or MoE model: a step runs each layer's forward once, and once more in the
     backward under remat "full", then the backward; norms per layer 2 (and 2
     qk-norms), plus the final norm, outside the remat."""
     L, n = cfg.n_layers, 2 + 2 * cfg.qk_norm
@@ -530,6 +544,93 @@ def run_reference_phase(torch, arch: str, n_layers: int, prompt: int) -> None:
           "prompt": prompt, "gen": 4, "logits_rel_err": rel, "tol": 1e-4,
           "tokens_equal": same})
     if not (rel < 1e-4 and same):
+        raise AssertionError(f"{arch}: card kernel path disagrees with the CPU plain path")
+
+
+@contextlib.contextmanager
+def route_tape(torch, record=None, replay=None):
+    """Wrap ``repro_torch.models.moe.route`` for a comparison run. ``record``
+    (a list) gets each call's layer params, input, logits, w and idx.
+    ``replay`` (another run's record) makes the k-th call take the k-th
+    recorded expert ids, with w the renormalised probabilities at them (what
+    the routing gives for those ids); the tokens whose own top-k set differs
+    are counted in the yielded list's one entry."""
+    from repro_torch.models import moe
+    orig, calls, flips = moe.route, [0], [0]
+
+    def route(p, x, cfg):
+        logits, probs, w, idx = orig(p, x, cfg)
+        if replay is not None:
+            want = replay[calls[0]]["idx"].to(idx.device)
+            calls[0] += 1
+            flips[0] += int((idx.sort(-1).values != want.sort(-1).values).any(-1).sum())
+            w = torch.gather(probs, -1, want)
+            w, idx = (w / w.sum(-1, keepdim=True).clamp_min(1e-9)).to(x.dtype), want
+        if record is not None:
+            record.append({"p": p, "x": x.detach(), "logits": logits.detach(),
+                           "w": w.detach(), "idx": idx})
+        return logits, probs, w, idx
+
+    moe.route = route
+    try:
+        yield flips
+    finally:
+        moe.route = orig
+
+
+def run_moe_reference_phase(torch, arch: str, n_layers: int, prompt: int) -> None:
+    """``arch``'s widths, ``n_layers`` layers, float32, B 2, gen 4: the card's
+    kernel path against the CPU plain path, same weights and prompts, each
+    side's routing recorded. Two correct implementations pick different
+    experts where the k-th and (k+1)-th probabilities are within rounding of
+    each other, so the whole model is not held across such a flip. Held
+    instead, for every routing call (layer, prefill or decode step), on the
+    card's own input to it: the router logits within 1e-5 of max|logit|,
+    and the dispatch/experts/combine half fed the same (w, idx) on both
+    sides within 1e-4 of max|y|. Then the (call, token) routes that differ
+    between the two runs are counted, and the rows whose routes all agree
+    are held as the dense reference is: logits within 1e-4 of max|logit|,
+    equal greedy tokens (at least one row must agree)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import build_model, moe
+    from repro_torch.models.common import tree_map
+    cfg = dataclasses.replace(get_config(arch), n_layers=n_layers, dtype="float32")
+    model = build_model(cfg)
+    dev = torch.device("cuda")
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    prompts = torch.randint(0, cfg.vocab_size, (2, prompt), device=dev,
+                            generator=torch.Generator(device=dev).manual_seed(1))
+    card_calls, cpu_calls = [], []
+    with route_tape(torch, record=card_calls):
+        card = generate(model, params, prompts, 4)
+    cpu_params = tree_map(lambda t: t.cpu(), params)
+    with route_tape(torch, record=cpu_calls):
+        host = generate(model, cpu_params, prompts.cpu(), 4)
+    logit_err = ffn_err = 0.0
+    row_ok = torch.ones(2, dtype=torch.bool)
+    differing = 0
+    for c, h in zip(card_calls, cpu_calls, strict=True):
+        x = c["x"].cpu()
+        want = c["logits"].cpu()
+        logit_err = max(logit_err, _rel_to_max(torch, moe.route(h["p"], x, cfg)[0], want))
+        y_card = moe.experts(c["p"], c["x"], c["w"], c["idx"], cfg).cpu()
+        y_cpu = moe.experts(h["p"], x, c["w"].cpu(), c["idx"].cpu(), cfg)
+        ffn_err = max(ffn_err, _rel_to_max(torch, y_card, y_cpu))
+        same = (c["idx"].cpu().sort(-1).values == h["idx"].sort(-1).values).all(-1)  # (B, S)
+        differing += int((~same).sum())
+        row_ok &= same.all(-1)
+    rows = row_ok.nonzero().flatten().tolist()
+    a, b = card["last_logits"].float().cpu()[rows], host["last_logits"].float()[rows]
+    rel = float((a - b).abs().max() / b.abs().max()) if rows else float("nan")
+    same_tokens = bool(torch.equal(card["tokens"].cpu()[rows], host["tokens"][rows]))
+    emit({"phase": "reference", "cfg": f"{arch} n_layers={n_layers} float32", "B": 2,
+          "prompt": prompt, "gen": 4, "routing_calls": len(card_calls),
+          "router_logits_rel_err": logit_err, "router_tol": 1e-5,
+          "shared_routing_ffn_rel_err": ffn_err, "ffn_tol": 1e-4,
+          "routes_differing": differing, "rows_compared": rows,
+          "logits_rel_err": rel, "tol": 1e-4, "tokens_equal": same_tokens})
+    if not (logit_err < 1e-5 and ffn_err < 1e-4 and rows and rel < 1e-4 and same_tokens):
         raise AssertionError(f"{arch}: card kernel path disagrees with the CPU plain path")
 
 
@@ -613,8 +714,8 @@ def _rel_to_max(torch, got, want) -> float:
     return float((got.float() - want.float()).abs().max() / want.float().abs().max())
 
 
-def run_train_reference_phase(torch, n_layers: int = 2) -> dict:
-    """phi4-mini-3.8b widths, ``n_layers`` layers, float32, B 2, S 200 (ragged
+def run_train_reference_phase(torch, arch: str, n_layers: int = 2) -> dict:
+    """``arch``'s widths, ``n_layers`` layers, float32, B 2, S 200 (ragged
     tiles): the card's kernel path (remat "full") against the CPU plain path,
     same weights and batch: the loss within 1e-4 and every grad leaf within
     1e-4 of its max|g|; AdamW applied to the same grads (the card's) on each
@@ -624,7 +725,11 @@ def run_train_reference_phase(torch, n_layers: int = 2) -> dict:
     Each side's own train step is not held to 1e-5: AdamW's first update is
     lr * g / (|g| + eps), lr * sign(g) wherever |g| >> eps, so a grad entry
     within float32 rounding of zero takes opposite signs on the two sides
-    and moves by 2 lr. That gap is reported, not checked."""
+    and moves by 2 lr. That gap is reported, not checked.
+
+    MoE: the card's routing is recorded and the CPU side takes the same
+    expert ids call for call (``route_tape``), so that both compute one
+    function; the tokens whose own CPU top-k differed are reported."""
     from repro_torch import optim
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
@@ -633,7 +738,7 @@ def run_train_reference_phase(torch, n_layers: int = 2) -> dict:
     from repro_torch.optim.adamw import leaves
     from repro_torch.runtime import (RuntimeConfig, TrainState, loss_and_grads,
                                      make_train_step)
-    cfg = dataclasses.replace(get_config(PHI), n_layers=n_layers, dtype="float32")
+    cfg = dataclasses.replace(get_config(arch), n_layers=n_layers, dtype="float32")
     model = build_model(cfg)
     rt = RuntimeConfig(remat="full", schedule="constant", opt=optim.AdamWConfig(lr=1e-3))
     step = make_train_step(model, rt)
@@ -643,7 +748,7 @@ def run_train_reference_phase(torch, n_layers: int = 2) -> dict:
     g = torch.Generator(device=dev).manual_seed(1)
     toks = torch.randint(0, cfg.vocab_size, (2, 201), device=dev, generator=g)
     batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
-    sides = {}
+    sides, tape = {}, []
     ops.reset_launches()
     for side in ("card", "cpu"):
         if side == "cpu":
@@ -651,57 +756,67 @@ def run_train_reference_phase(torch, n_layers: int = 2) -> dict:
             params = cpu_params
             batch = {k: v.cpu() for k, v in batch.items()}
             torch.cuda.empty_cache()
-        t0 = time.perf_counter()
-        loss, _, grads = loss_and_grads(model, params, batch, remat=rt.remat)
-        grads = tree_map(lambda t: t.cpu(), grads)
-        if side == "card":
-            card_grads = grads
+        if cfg.family != "moe":
+            routing = contextlib.nullcontext([0])
+        elif side == "card":
+            routing = route_tape(torch, record=tape)
         else:
-            grad_err = max(_rel_to_max(torch, a, b)
-                           for a, b in zip(leaves(card_grads), leaves(grads)))
-        same = tree_map(lambda t: t.to(params["embed"]["w"].device), card_grads)
-        del grads
-        upd = tree_map(lambda t: t.detach().clone(), params)
-        upd, _, _ = optim.update(same, optim.init(upd), upd, rt.opt)
-        updated = [t.cpu() for t in leaves(upd)]
-        del upd, same
-        state, metrics = step(TrainState(params, optim.init(params), ()), batch)
+            routing = route_tape(torch, replay=tape)
+        t0 = time.perf_counter()
+        with routing as flips:
+            loss, _, grads = loss_and_grads(model, params, batch, remat=rt.remat)
+            grads = tree_map(lambda t: t.cpu(), grads)
+            if side == "card":
+                card_grads = grads
+            else:
+                grad_err = max(_rel_to_max(torch, a, b)
+                               for a, b in zip(leaves(card_grads), leaves(grads)))
+            same = tree_map(lambda t: t.to(params["embed"]["w"].device), card_grads)
+            del grads
+            upd = tree_map(lambda t: t.detach().clone(), params)
+            upd, _, _ = optim.update(same, optim.init(upd), upd, rt.opt)
+            updated = [t.cpu() for t in leaves(upd)]
+            del upd, same
+            state, metrics = step(TrainState(params, optim.init(params), ()), batch)
         if side == "card":
             torch.cuda.synchronize()
         sides[side] = {"loss": float(loss), "step_loss": float(metrics["loss"]),
                        "updated": updated,
                        "stepped": [t.detach().cpu() for t in leaves(state.params)],
-                       "s": time.perf_counter() - t0}
+                       "s": time.perf_counter() - t0, "flips": flips[0]}
         del state
+    del tape
     card, cpu = sides["card"], sides["cpu"]
     param_err = max(_rel_to_max(torch, a, b) for a, b in zip(card["updated"], cpu["updated"]))
     own_err = max(_rel_to_max(torch, a, b) for a, b in zip(card["stepped"], cpu["stepped"]))
     loss_err = abs(card["loss"] - cpu["loss"])
-    row = {"phase": "train reference", "cfg": f"{PHI} n_layers={n_layers} float32",
+    row = {"phase": "train reference", "cfg": f"{arch} n_layers={n_layers} float32",
            "B": 2, "S": 200, "loss_card": card["loss"], "loss_cpu": cpu["loss"],
            "loss_abs_err": loss_err, "loss_tol": 1e-4, "grad_err_of_max": grad_err,
            "grad_tol": 1e-4, "param_err_of_max_same_grads": param_err, "param_tol": 1e-5,
            "param_err_of_max_own_steps": own_err, "lr": rt.opt.lr,
+           **({"cpu_route_flips": cpu["flips"]} if cfg.family == "moe" else {}),
            "card_s": card["s"], "cpu_s": cpu["s"], "launches": launches}
     emit(row)
     if not (loss_err < 1e-4 and grad_err < 1e-4 and param_err < 1e-5
             and card["step_loss"] == card["loss"] and cpu["step_loss"] == cpu["loss"]):
-        raise AssertionError("train reference: the card's kernel path disagrees with the "
-                             "CPU plain path")
+        raise AssertionError(f"train reference {arch}: the card's kernel path disagrees "
+                             "with the CPU plain path")
     check_launches(launches, {k: 2 * v for k, v in
                               expected_train_launches(cfg, 1, 0, True).items()},
-                   "train reference")
+                   f"train reference {arch}")
     return launches
 
 
-def run_train_staged_phase(torch) -> dict:
-    """``launch.train.train`` end to end on the card on the smoke phi4-mini
-    with head dim 64: corpus staged, 6 steps, checkpoints at 3 and 6 saved to
-    the burst tier and drained, the held batch improved."""
+def run_train_staged_phase(torch, arch: str) -> dict:
+    """``launch.train.train`` end to end on the card on the smoke ``arch``
+    with head dim 64 (the kernels' smallest): corpus staged, 6 steps,
+    checkpoints at 3 and 6 saved to the burst tier and drained, the held
+    batch improved."""
     from repro_torch.configs import get_smoke
     from repro_torch.kernels import ops
     from repro_torch.launch.train import train
-    cfg = dataclasses.replace(get_smoke(PHI), head_dim=64)
+    cfg = dataclasses.replace(get_smoke(arch), head_dim=64)
     steps = 6
     ops.reset_launches()
     res = train(cfg, steps=steps, batch=4, seq=128, lr=1e-3, ckpt_every=3, seed=0,
@@ -714,13 +829,14 @@ def run_train_staged_phase(torch) -> dict:
           "stage_bytes": res["stage_bytes"], "wall_s": res["wall_s"], "launches": got})
     if not (res["improved"] and res["steps"] and len(res["drains"]) == 2
             and all(math.isfinite(x) for x in res["losses"])):
-        raise AssertionError("train staged: no improvement or no committed, drained step")
-    check_launches(got, expected_train_launches(cfg, steps, 2, True), "train staged")
+        raise AssertionError(f"train staged {arch}: no improvement or no committed, "
+                             "drained step")
+    check_launches(got, expected_train_launches(cfg, steps, 2, True), f"train staged {arch}")
     return got
 
 
-def run_train_full_phase(torch) -> dict:
-    """phi4-mini-3.8b at full width, TRAIN_LAYERS of 32 layers, bf16 params,
+def run_train_full_phase(torch, arch: str) -> dict:
+    """``arch`` at full width, ``TRAIN_LAYERS[arch]`` layers, bf16 params,
     fp32 AdamW state, B 4, S 2048, remat "full": one warm-up step, then
     TRAIN_STEPS timed steps on Loader batches."""
     from repro_torch.configs import get_config
@@ -731,7 +847,8 @@ def run_train_full_phase(torch) -> dict:
     from repro_torch.optim import AdamWConfig
     from repro_torch.optim.adamw import leaves
     from repro_torch.runtime import RuntimeConfig, make_train_state, make_train_step
-    cfg = dataclasses.replace(get_config(PHI), n_layers=TRAIN_LAYERS)
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, n_layers=TRAIN_LAYERS[arch])
     model = build_model(cfg)
     rt = RuntimeConfig(remat="full", opt=AdamWConfig(lr=1e-4), schedule="constant")
     dev = torch.device("cuda")
@@ -755,18 +872,21 @@ def run_train_full_phase(torch) -> dict:
         state, m = step(state, batch)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-        steps.append({"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+        steps.append({"loss": float(m["loss"]), "ce": float(m["ce"]), "aux": float(m["aux"]),
+                      "grad_norm": float(m["grad_norm"]),
                       "step_ms": dt * 1e3, "tokens_per_s": TRAIN_B * TRAIN_S / dt,
                       "peak_memory_bytes": torch.cuda.max_memory_allocated()})
     got = dict(ops.LAUNCHES)
     mean_ms = sum(x["step_ms"] for x in steps) / len(steps)
-    emit({"phase": "train full", "cfg": f"{PHI} {TRAIN_LAYERS} of 32 layers bf16, fp32 AdamW",
+    emit({"phase": "train full",
+          "cfg": f"{arch} {cfg.n_layers} of {full.n_layers} layers bf16, fp32 AdamW",
           "params": n_params, "init_s": init_s, "B": TRAIN_B, "S": TRAIN_S,
           "remat": rt.remat, "steps": steps, "mean_step_ms": mean_ms,
           "mean_tokens_per_s": TRAIN_B * TRAIN_S / mean_ms * 1e3, "launches": got})
     if not all(math.isfinite(x["loss"]) and x["grad_norm"] > 0 for x in steps):
-        raise AssertionError("train full: a non-finite loss or a zero grad norm")
-    check_launches(got, expected_train_launches(cfg, TRAIN_STEPS, 0, True), "train full")
+        raise AssertionError(f"train full {arch}: a non-finite loss or a zero grad norm")
+    check_launches(got, expected_train_launches(cfg, TRAIN_STEPS, 0, True),
+                   f"train full {arch}")
     del state
     return got
 
@@ -842,19 +962,22 @@ def main() -> int:
     log(f"chip_smoke: kernel phase done at {time.perf_counter() - t_start:.1f} s")
     run_reference_phase(torch, QWEN, 2, 32)
     run_reference_phase(torch, ZAMBA, 7, 160)
+    torch.cuda.empty_cache()
+    run_moe_reference_phase(torch, QMOE, 2, 32)
     launches = {}
-    for arch, staged_layers in ((QWEN, 2), (ZAMBA, 7)):
+    for arch, staged_layers in ((QWEN, 2), (ZAMBA, 7), (QMOE, 2)):
         torch.cuda.empty_cache()
         launches[f"staged {arch}"] = run_staged_phase(torch, arch, staged_layers)
         torch.cuda.empty_cache()
         launches[f"full {arch}"] = run_full_phase(torch, arch)
-    log(f"chip_smoke: serving phases done at {time.perf_counter() - t_start:.1f} s")
-    for name, phase in (("train reference", run_train_reference_phase),
-                        ("train staged", run_train_staged_phase),
-                        ("train full", run_train_full_phase)):
-        torch.cuda.empty_cache()
-        launches[name] = phase(torch)
-        log(f"chip_smoke: {name} done at {time.perf_counter() - t_start:.1f} s")
+        log(f"chip_smoke: {arch} done at {time.perf_counter() - t_start:.1f} s")
+    for arch in (PHI, GRAN):
+        for name, phase in (("train reference", run_train_reference_phase),
+                            ("train staged", run_train_staged_phase),
+                            ("train full", run_train_full_phase)):
+            torch.cuda.empty_cache()
+            launches[f"{name} {arch}"] = phase(torch, arch)
+            log(f"chip_smoke: {name} {arch} done at {time.perf_counter() - t_start:.1f} s")
 
     emit(kernels_line(main_rows, launches))
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s after the card check")

@@ -10,8 +10,12 @@ stage-out), in the background or not. A tree is nested dicts, NamedTuples
 
 numpy has no bfloat16 without ``ml_dtypes``, so a bf16 leaf is stored as its
 raw 16-bit words (a uint16 ``.npy``) and the manifest records ``"bfloat16"``,
-the name ``str(arr.dtype)`` gives on the JAX side. Restoring a checkpoint
-that ``repro`` wrote is not supported yet.
+the name ``str(arr.dtype)`` gives on the JAX side. ``repro`` saves a bf16
+leaf as an ``ml_dtypes`` array, which ``np.load`` reads back without
+``ml_dtypes`` as 2-byte voids (descr ``'<V2'``); either way a leaf whose
+manifest says ``"bfloat16"`` is taken as its raw 16-bit words, so the port
+restores ``repro``'s checkpoints, and ``repro`` restores the port's float32
+ones (its own restore takes no bf16 leaf).
 """
 
 from __future__ import annotations
@@ -69,7 +73,7 @@ def _to_numpy(t: torch.Tensor) -> tuple[np.ndarray, str]:
 
 
 def _from_numpy(arr: np.ndarray, dtype: str) -> torch.Tensor:
-    if dtype == "bfloat16":
+    if dtype == "bfloat16":             # the port's uint16 or repro's '<V2' words
         return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
     return torch.from_numpy(arr)
 

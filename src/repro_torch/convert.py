@@ -7,9 +7,10 @@ key paths and the same stacked leading layer dims (``layers/attn/wq/w`` is
 holding bf16 arrays widens them to float32 first and passes ``dtype``.
 
 ``repro`` keeps some leaves in float32 whatever the config's dtype: Mamba2's
-``dt_bias``, ``A_log`` and ``D`` (``src/repro/models/mamba2.py:mamba_init``).
-Those stay float32 when ``dtype`` asks for another type; the dense tree has
-none of them.
+``dt_bias``, ``A_log`` and ``D`` (``src/repro/models/mamba2.py:mamba_init``),
+matched by leaf name, and the MoE router's weight (``moe_init``), matched by
+key path, since its leaf is called ``w`` like every dense weight. Those stay
+float32 when ``dtype`` asks for another type; the dense tree has none of them.
 
 ``train_state_from_numpy`` carries a whole ``repro`` ``TrainState`` across
 (params, the ``OptState``'s step, fp32 master, m and v, and the error-feedback
@@ -21,20 +22,27 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-FLOAT32_LEAVES = frozenset({"dt_bias", "A_log", "D"})
+FLOAT32_LEAVES = frozenset({"dt_bias", "A_log", "D"})     # by leaf name
+FLOAT32_PATHS = ("moe/router/w",)                         # by the end of the key path
+
+
+def keeps_float32(path: str) -> bool:
+    """Whether the leaf at ``/``-joined key ``path`` stays float32."""
+    return (path.rsplit("/", 1)[-1] in FLOAT32_LEAVES
+            or any(path == p or path.endswith("/" + p) for p in FLOAT32_PATHS))
 
 
 def from_numpy(tree, *, device="cpu", dtype: torch.dtype | None = None):
     """Nested dicts of numpy arrays -> nested dicts of tensors on ``device``,
-    cast to ``dtype`` where given, except the ``FLOAT32_LEAVES``, which are
-    float32."""
-    def walk(node, key):
+    cast to ``dtype`` where given, except the leaves ``keeps_float32`` names,
+    which are float32."""
+    def walk(node, path):
         if isinstance(node, dict):
-            return {k: walk(v, k) for k, v in node.items()}
+            return {k: walk(v, f"{path}/{k}" if path else k) for k, v in node.items()}
         t = torch.from_numpy(np.array(node))      # a writable, contiguous copy
         if dtype is None:
             return t.to(device)
-        return t.to(device=device, dtype=torch.float32 if key in FLOAT32_LEAVES else dtype)
+        return t.to(device=device, dtype=torch.float32 if keeps_float32(path) else dtype)
     return walk(tree, "")
 
 

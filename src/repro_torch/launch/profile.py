@@ -2,16 +2,24 @@
 breakdown.
 
 Serving: builds the model (qwen3-14b by default, ``--arch zamba2-7b`` for
-the hybrid; all its layers, bf16, random weights from ``--seed``), warms up,
+the hybrid, ``--arch qwen3-moe-30b-a3b`` for MoE; all its layers, bf16,
+random weights from ``--seed``), warms up,
 then profiles two windows separately: one batched prefill, and the greedy
 decode steps that follow it. Training (``--train``): phi4-mini-3.8b by
 default at full width with ``--layers`` (default 8) layers, bf16 params and
 fp32 AdamW state, ``--batch`` x ``--seq`` tokens (4 x 2048), remat "full";
-one warm-up step, then one profiled train step. For each window it prints
-one JSON line: host-clock wall time without and with the profiler, device
-busy time (the union of kernel intervals) and idle share, and device time by
-category (the port's kernels, matrix products, everything else) and by
-kernel. Needs a CUDA device.
+one warm-up step, then one profiled train step (``--arch
+granite-moe-1b-a400m --layers 24`` for MoE at full depth). For each window
+it prints one JSON line: host-clock wall time without and with the profiler,
+device busy time (the union of kernel intervals) and idle share, and device
+time by category (the port's kernels, matrix products, sorts and top-k,
+gathers/scatters/index ops and scans, everything else) and by kernel. On a
+MoE model the sort and gather categories hold the routing and dispatch (with
+the embedding lookup and, in training, the loss's gather); a further line
+splits the MoE layers' device time by function of ``models/moe.py``
+(``moe_breakdown``, spans put around them for that window only: one
+prefill and one decode step, or the train step's forward and recompute).
+Needs a CUDA device.
 
 Run:  PYTHONPATH=src python -m repro_torch.launch.profile [--arch zamba2-7b] [--layers N]
       PYTHONPATH=src python -m repro_torch.launch.profile --train [--layers 8]
@@ -20,13 +28,14 @@ Run:  PYTHONPATH=src python -m repro_torch.launch.profile [--arch zamba2-7b] [--
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import re
 import time
 
 import torch
-from torch.profiler import ProfilerActivity, profile
+from torch.profiler import ProfilerActivity, profile, record_function
 
 from ..configs import get_config
 from ..device import resolve_device
@@ -40,6 +49,8 @@ CATEGORIES = (
     ("rmsnorm", re.compile(r"rmsnorm_kernel")),
     ("ssd_intra_chunk", re.compile(r"ssd_intra_chunk_kernel")),
     ("matmul", re.compile(r"gemm|gemv|cutlass|xmma|nvjet|cublas", re.I)),
+    ("sort_topk", re.compile(r"sort|topk", re.I)),
+    ("gather_scatter_index", re.compile(r"scatter|gather|index|scan", re.I)),
 )
 
 
@@ -104,6 +115,71 @@ def profile_window(fn, device: torch.device, top: int) -> dict:
     }
 
 
+# functions of models/moe.py that moe_ffn calls, the ones that call no other first
+MOE_FUNCTIONS = ("route", "dispatch_plan", "load_balance_aux", "experts")
+
+
+@contextlib.contextmanager
+def _moe_spans():
+    """Wrap each of ``MOE_FUNCTIONS`` in a ``record_function("moe.<name>")``
+    span while the breakdown window runs (the model's code is not changed,
+    and costs nothing when it is not profiled)."""
+    from ..models import moe
+    saved = {name: getattr(moe, name) for name in MOE_FUNCTIONS}
+
+    def spanned(name, fn):
+        def run(*args, **kwargs):
+            with record_function(f"moe.{name}"):
+                return fn(*args, **kwargs)
+        return run
+
+    for name, fn in saved.items():
+        setattr(moe, name, spanned(name, fn))
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(moe, name, fn)
+
+
+def _moe_function(event):
+    """The innermost ``moe.<name>`` span around an op, else None."""
+    names = set()
+    while event is not None:
+        if event.name.startswith("moe."):
+            names.add(event.name[4:])
+        event = event.cpu_parent
+    return next((n for n in MOE_FUNCTIONS if n in names), None)
+
+
+def moe_breakdown(fn, device: torch.device) -> dict:
+    """Device ms, by category, of the kernels that each function of
+    ``models/moe.py`` launches in one run of ``fn()``: routing, the dispatch
+    plan, the expert products with the gathers and the combine around them
+    (``experts``), the aux. The profiler ties each kernel to the op that
+    launched it (host activity on, so this window is slower than the
+    others) and the op to the spans around it; kernels launched from
+    elsewhere, the autograd backward included, are left out."""
+    torch.cuda.synchronize(device)
+    with _moe_spans(), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize(device)
+    out: dict[str, dict[str, float]] = {}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CPU or not e.kernels:
+            continue
+        where = _moe_function(e)
+        if where is None:
+            continue
+        cats = out.setdefault(where, {})
+        for k in e.kernels:
+            cat = _category(k.name)
+            cats[cat] = cats.get(cat, 0.0) + k.duration / 1e3
+    if not out:
+        raise RuntimeError("no device kernel was traced to a function of models/moe.py")
+    return {f: dict(sorted(c.items())) for f, c in sorted(out.items())}
+
+
 def profile_train(args, dev: torch.device) -> dict:
     from ..data import DatasetSpec, Loader
     from ..launch.train import to_device
@@ -128,7 +204,12 @@ def profile_train(args, dev: torch.device) -> dict:
             "device": torch.cuda.get_device_name(dev)}
     out = {"window": "train step", **meta, **profile_window(run_step, dev, args.top)}
     print(json.dumps(out), flush=True)
-    return {"train step": out}
+    res = {"train step": out}
+    if cfg.family == "moe":
+        res["moe"] = {"window": "train step, MoE layers (forward and recompute)", **meta,
+                      "device_ms_by_function": moe_breakdown(run_step, dev)}
+        print(json.dumps(res["moe"]), flush=True)
+    return res
 
 
 def main(argv=None) -> dict:
@@ -185,6 +266,15 @@ def main(argv=None) -> dict:
     for name, fn in (("prefill", run_prefill), (f"decode x{G - 1}", run_decode)):
         out[name] = {"window": name, **meta, **profile_window(fn, dev, args.top)}
         print(json.dumps(out[name]), flush=True)
+    if cfg.family == "moe":
+        def one_decode_step():
+            model.decode_step(params, state["cache"], {"token": torch.argmax(state["logits"], -1)})
+
+        out["moe"] = {"window": "MoE layers", **meta,
+                      "device_ms_by_function": {"prefill": moe_breakdown(run_prefill, dev),
+                                                "decode step": moe_breakdown(one_decode_step,
+                                                                             dev)}}
+        print(json.dumps(out["moe"]), flush=True)
     return out
 
 

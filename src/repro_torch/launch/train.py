@@ -11,7 +11,8 @@ as a training job):
 and the held-batch loss before and after. On the card every norm and
 attention layer runs its forward and backward kernels (``kernels.ops``).
 
-Run:  PYTHONPATH=src python -m repro_torch.launch.train --arch phi4-mini-3.8b
+Run:  PYTHONPATH=src python -m repro_torch.launch.train   (granite-moe-1b-a400m)
+      PYTHONPATH=src python -m repro_torch.launch.train --arch phi4-mini-3.8b
       (add ``--device cpu`` to run the plain path on the CPU)
 """
 
@@ -138,9 +139,8 @@ def train(cfg: ModelConfig, *, steps: int = 20, batch: int = 4, seq: int = 128,
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(
         description="Train on the card through the provisioned burst tier. The default "
-                    "--arch, granite-moe-1b-a400m (repro's default), is MoE and raises "
-                    "NotImplementedError until MoE is ported; phi4-mini-3.8b, qwen3-14b "
-                    "and qwen2.5-32b (dense) train.")
+                    "--arch is repro's, granite-moe-1b-a400m (MoE); qwen3-moe-30b-a3b "
+                    "(MoE), phi4-mini-3.8b, qwen3-14b and qwen2.5-32b (dense) also train.")
     ap.add_argument("--arch", default="granite-moe-1b-a400m")
     ap.add_argument("--smoke", action="store_true", default=True)
     ap.add_argument("--full", dest="smoke", action="store_false")

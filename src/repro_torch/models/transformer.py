@@ -1,12 +1,15 @@
-"""Decoder-only transformer LM, family ``"dense"``: init, loss, prefill, decode.
+"""Decoder-only transformer LM, families ``"dense"`` and ``"moe"``: init,
+loss, prefill, decode.
 
 The port of ``src/repro/models/transformer.py``. Params keep the JAX key
 paths and stacked leading layer dim (``layers/attn/wq/w`` is (L, d, H*hd));
 the ``lax.scan`` over layers is a loop over that dim, through views from one
-``unbind`` (whose backward stacks the per-layer grads once). ``loss_fn`` runs
-under autograd: on the card the norms and attention launch the forward and
-backward kernels (``kernels.ops``). MoE, the gemma3 local/global pattern and
-the VLM prefix are later slices.
+``unbind`` (whose backward stacks the per-layer grads once). A ``"moe"``
+layer takes ``models/moe.py``'s FFN in place of SwiGLU, and the loss adds
+``MOE_AUX_COEF`` times the load-balance aux summed over layers. ``loss_fn``
+runs under autograd: on the card the norms and attention launch the forward
+and backward kernels (``kernels.ops``). The gemma3 local/global pattern and
+the VLM prefix are a later slice.
 """
 
 from __future__ import annotations
@@ -30,23 +33,31 @@ from .layers import (
     swiglu_init,
     unembed,
 )
+from .moe import moe_ffn, moe_init
+
+MOE_AUX_COEF = 0.01
 
 
 # ---------------------------------------------------------------------------
 # layer init / apply
 # ---------------------------------------------------------------------------
 def _layer_init(gen: torch.Generator, cfg: ModelConfig, *, dtype):
-    return {
+    p = {
         "attn": attn_init(gen, cfg, dtype=dtype),
         "ln1": rmsnorm_init(cfg.d_model, dtype, gen.device),
         "ln2": rmsnorm_init(cfg.d_model, dtype, gen.device),
-        "mlp": swiglu_init(gen, cfg.d_model, cfg.d_ff, dtype=dtype),
     }
+    if cfg.family == "moe":
+        p["moe"] = moe_init(gen, cfg, dtype=dtype)
+    else:
+        p["mlp"] = swiglu_init(gen, cfg.d_model, cfg.d_ff, dtype=dtype)
+    return p
 
 
 def _layer_apply(lp, x, cfg: ModelConfig, *, positions, theta: float,
                  window: Optional[int], cache: Optional[KVCache] = None, cache_pos=None):
-    """Pre-norm block. Returns (x, kv)."""
+    """Pre-norm block. Returns (x, kv, aux): aux is the MoE load-balance
+    loss, 0.0 for a dense layer."""
     h, kv = attention(
         lp["attn"], norm(lp["ln1"], x, cfg.norm_eps), cfg,
         positions=positions, theta=theta, window=window,
@@ -54,7 +65,11 @@ def _layer_apply(lp, x, cfg: ModelConfig, *, positions, theta: float,
     )
     x = x + h
     y = norm(lp["ln2"], x, cfg.norm_eps)
-    return x + swiglu(lp["mlp"], y), kv
+    if cfg.family == "moe":
+        m, aux = moe_ffn(lp["moe"], y, cfg)
+    else:
+        m, aux = swiglu(lp["mlp"], y), 0.0
+    return x + m, kv, aux
 
 
 def _unstack(tree, n: int) -> list:
@@ -93,18 +108,19 @@ def _logits(params, h):
 def _forward(params, cfg: ModelConfig, x, positions, *, want_cache: bool,
              remat: Optional[str] = None):
     """x: (B, S, d) embedded input. Returns (hidden, per-layer KVCache list
-    or None)."""
+    or None, aux summed over layers)."""
     def layer_fn(lp, x):
         return _layer_apply(lp, x, cfg, positions=positions, theta=cfg.rope_theta,
                             window=cfg.sliding_window)
 
     layer_fn = remat_wrap(layer_fn, remat)
-    kvs = []
+    kvs, aux = [], 0.0
     for lp in _unstack(params["layers"], cfg.n_layers):
-        x, kv = layer_fn(lp, x)
+        x, kv, a = layer_fn(lp, x)
+        aux = aux + a
         if want_cache:
             kvs.append(kv)
-    return x, (kvs if want_cache else None)
+    return x, (kvs if want_cache else None), aux
 
 
 # ---------------------------------------------------------------------------
@@ -112,13 +128,16 @@ def _forward(params, cfg: ModelConfig, x, positions, *, want_cache: bool,
 # ---------------------------------------------------------------------------
 def loss_fn(params, batch, cfg: ModelConfig, *, remat: Optional[str] = None):
     """Mean next-token cross entropy of ``batch["tokens"]`` against
-    ``batch["labels"]`` (-100 ignored). Returns (loss, {"ce", "aux"})."""
+    ``batch["labels"]`` (-100 ignored), plus ``MOE_AUX_COEF`` times the MoE
+    aux (0 for dense). Returns (loss, {"ce", "aux"})."""
     x = embed(params["embed"], batch["tokens"])
     positions = torch.arange(x.shape[1], device=x.device)
-    h, _ = _forward(params, cfg, x, positions, want_cache=False, remat=remat)
+    h, _, aux = _forward(params, cfg, x, positions, want_cache=False, remat=remat)
     h = norm(params["final_norm"], h, cfg.norm_eps)
     ce = cross_entropy_loss(_logits(params, h), batch["labels"])
-    return ce, {"ce": ce, "aux": torch.zeros((), device=ce.device)}
+    if not torch.is_tensor(aux):                 # no MoE layer
+        aux = torch.zeros((), device=ce.device)
+    return ce + MOE_AUX_COEF * aux, {"ce": ce, "aux": aux}
 
 
 @torch.inference_mode()
@@ -133,7 +152,7 @@ def prefill(params, batch, S_max: int, cfg: ModelConfig):
     if S > S_max:
         raise ValueError(f"prompt length {S} > S_max {S_max}")
     device = x.device
-    x, kvs = _forward(params, cfg, x, torch.arange(S, device=device), want_cache=True)
+    x, kvs, _ = _forward(params, cfg, x, torch.arange(S, device=device), want_cache=True)
     cache = init_cache(cfg, B, S_max, device)
     for i, kv in enumerate(kvs):
         cache["k"][i, :, :S] = kv.k
@@ -156,7 +175,7 @@ def decode_step(params, cache, batch, cfg: ModelConfig):
     pos = cache["pos"]
     positions = pos.reshape(1)
     for i, lp in enumerate(_unstack(params["layers"], cfg.n_layers)):
-        x, _ = _layer_apply(
+        x, _, _ = _layer_apply(
             lp, x, cfg, positions=positions, theta=cfg.rope_theta,
             window=cfg.sliding_window, cache=KVCache(cache["k"][i], cache["v"][i]),
             cache_pos=pos,

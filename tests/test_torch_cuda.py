@@ -8,7 +8,10 @@ kernels (flash attention, rmsnorm) against their plain versions, at 2e-2
 edges (128-key tiles, the 2-stage ring, hd 112's padding, a one-row grid)
 and two calls held to each other, and through ``kernels.ops``' autograd
 Functions; the hybrid's short prompts on the card; serving's launches
-unchanged under ``inference_mode``. Every test here
+unchanged under ``inference_mode``; the kernels at the qwen3-moe-30b-a3b
+and granite-moe-1b-a400m shapes, one MoE layer at the published widths
+against the CPU with the routing shared, and the same layer under
+``torch.cuda.set_sync_debug_mode("error")``. Every test here
 carries the ``cuda`` marker and skips without a card. The file imports no JAX,
 so it runs where only PyTorch is installed:
 
@@ -294,3 +297,111 @@ def test_hybrid_short_prompt_on_card(cuda_card, prompt):
         logits, cache = model.decode_step(params, cache, {"token": toks[:, prompt + i]})
     full, _ = model.prefill(params, {"tokens": toks}, prompt + 3)
     assert _rel_err(logits, full) < 2e-2
+
+
+# -- MoE: the kernels at the MoE models' shapes, one MoE layer on the card ------------
+@ATTN_DTYPE
+@pytest.mark.parametrize("case", ["flash qwen3-moe prefill", "decode qwen3-moe",
+                                  "flash_bwd granite train", "rmsnorm qwen3-moe",
+                                  "rmsnorm_bwd granite train"])
+def test_kernels_at_moe_model_shapes_on_card(cuda_card, case, dtype):
+    """qwen3-moe-30b-a3b serving (32 query heads over 4 kv heads, G 8, hd 128;
+    d 2048) and granite-moe-1b-a400m training (16 over 8, G 2, hd 64; d 1024)."""
+    td, tol = DTYPES[dtype], TOL[dtype]
+    if case == "flash qwen3-moe prefill":
+        q, k, v = _card_inputs(cuda_card, [(8, 512, 32, 128), (8, 512, 4, 128),
+                                           (8, 512, 4, 128)], td, 12)
+        torch.testing.assert_close(flash_attention_cuda(q, k, v), flash_attention_plain(q, k, v),
+                                   atol=tol, rtol=tol)
+    elif case == "decode qwen3-moe":
+        q, k, v = _card_inputs(cuda_card, [(8, 1, 32, 128), (8, 544, 4, 128),
+                                           (8, 544, 4, 128)], td, 13)
+        kl = torch.tensor(528, dtype=torch.int32, device=cuda_card)
+        torch.testing.assert_close(decode_attention_cuda(q, k, v, kv_len=kl),
+                                   decode_attention_plain(q, k, v, kv_len=kl),
+                                   atol=tol, rtol=tol)
+    elif case == "flash_bwd granite train":
+        q, k, v, o, lse, do = _bwd_case(cuda_card, 4, 2048, 2, 8, 64, None, td, seed=14)
+        _, got_lse = flash_attention_cuda(q, k, v, return_lse=True)
+        assert _rel_err(got_lse, lse) < 1e-5
+        got = flash_attention_bwd_cuda(q, k, v, o, lse, do)
+        want = flash_attention_bwd_plain(q, k, v, o, lse, do)
+        for name, g, w in zip(("dq", "dk", "dv"), got, want):
+            assert _rel_err(g, w) < GRAD_TOL[dtype], name
+    elif case == "rmsnorm qwen3-moe":
+        x, s = _card_inputs(cuda_card, [(8 * 512, 2048), (2048,)], td, 15)
+        torch.testing.assert_close(rmsnorm_triton(x, s), rmsnorm_plain(x, s), atol=tol, rtol=tol)
+    else:
+        x, s, g = _card_inputs(cuda_card, [(4 * 2048, 1024), (1024,), (4 * 2048, 1024)], td, 16)
+        _, inv = rmsnorm_triton(x, s, return_inv=True)
+        for name, a, b in zip(("dx", "dscale"), rmsnorm_bwd_triton(x, s, g, inv),
+                              rmsnorm_bwd_plain(x, s, g)):
+            assert _rel_err(a, b) < GRAD_TOL[dtype], name
+
+
+MOE_ARCHS = pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "granite-moe-1b-a400m"])
+
+
+def _moe_layer(dev, arch, dtype, S, seed=0):
+    """One MoE FFN at the published widths: params and an input (2, S, d)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    cfg = dataclasses.replace(get_config(arch), dtype="float32" if dtype == torch.float32
+                              else "bfloat16")
+    p = moe.moe_init(torch.Generator(device=dev).manual_seed(seed), cfg, dtype=dtype)
+    x, = _card_inputs(dev, [(2, S, cfg.d_model)], dtype, seed + 1)
+    return cfg, p, x
+
+
+@MOE_ARCHS
+@pytest.mark.parametrize("layout", ["baseline", "moe2d"])
+def test_moe_layer_matches_cpu_with_shared_routing(cuda_card, arch, layout):
+    """float32, B 2, S 64: the router logits on the card within 1e-5 of
+    max|logit| of the CPU's on the same input; then the dispatch, expert
+    products and combine fed the card's (w, idx) on both sides, y within
+    1e-4 of max|y|, and the aux within 1e-5. The routing is shared because
+    two correct top-k's may differ where two probabilities are within
+    rounding of each other."""
+    from repro_torch.hints import flag_hint
+    from repro_torch.models import moe
+    from repro_torch.models.common import tree_map
+    cfg, p, x = _moe_layer(cuda_card, arch, torch.float32, 64)
+    pc, xc = tree_map(lambda t: t.cpu(), p), x.cpu()
+    with flag_hint(("moe2d",) if layout == "moe2d" else ()):
+        logits, probs, w, idx = moe.route(p, x, cfg)
+        y = moe.experts(p, x, w, idx, cfg)
+        y_cpu = moe.experts(pc, xc, w.cpu(), idx.cpu(), cfg)
+    assert _rel_err(logits.cpu(), moe.route(pc, xc, cfg)[0]) < 1e-5
+    assert _rel_err(y.cpu(), y_cpu) < 1e-4
+    aux = moe.load_balance_aux(probs, idx, cfg.n_experts)
+    aux_cpu = moe.load_balance_aux(probs.cpu(), idx.cpu(), cfg.n_experts)
+    assert float(aux) == pytest.approx(float(aux_cpu), rel=1e-5)
+
+
+@MOE_ARCHS
+def test_moe_layer_runs_without_host_sync(cuda_card, arch):
+    """One bf16 MoE FFN at the published widths, forward and backward at a
+    prefill shape and forward at a decode shape (S 1), under
+    ``torch.cuda.set_sync_debug_mode("error")``: nothing in the routing or
+    the dispatch reads a value back to the host."""
+    from repro_torch.models import moe
+    cfg, p, x = _moe_layer(cuda_card, arch, torch.bfloat16, 128)
+    for t in (p["router"]["w"], p["gate"], p["up"], p["down"]):
+        t.requires_grad_(True)
+    x.requires_grad_(True)
+
+    def run():
+        y, aux = moe.moe_ffn(p, x, cfg)
+        (y.float().square().mean() + aux).backward()
+        with torch.no_grad():
+            return moe.moe_ffn(p, x[:, :1], cfg)[0]
+    run()                                               # first calls set up handles
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = run()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.isfinite(out.float()).all() and torch.isfinite(x.grad.float()).all()

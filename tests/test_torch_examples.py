@@ -1,0 +1,29 @@
+"""The port's examples run to their end on the CPU (``--device cpu``): the
+serve example's own checks (output shape, final cache position, as
+examples/serve_decode.py:58-59) on the dense and the MoE arch, and the train
+example on the train driver's default MoE arch."""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+pytest.importorskip("torch")
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+@pytest.mark.parametrize("script,args", [
+    ("torch_serve_decode.py", []),
+    ("torch_serve_decode.py", ["--arch", "qwen3-moe-30b-a3b"]),
+    ("torch_train_lm.py", ["--steps", "6", "--batch", "2", "--seq", "32", "--ckpt-every", "3"]),
+])
+def test_example_runs_on_cpu(script, args):
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, str(ROOT / "examples" / script), *args,
+                          "--device", "cpu"], cwd=ROOT, env=env, text=True,
+                         capture_output=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.rstrip().endswith("OK")

@@ -223,12 +223,6 @@ def test_train_driver_on_cpu():
     assert len(res["losses"]) == 6 and all(np.isfinite(res["losses"]))
 
 
-def test_train_driver_default_moe_arch_raises():
-    from repro_torch.launch.train import main
-    with pytest.raises(NotImplementedError, match="moe"):
-        main(["--steps", "1", "--device", "cpu"])
-
-
 @pytest.mark.parametrize("window", [None, 5])
 @pytest.mark.parametrize("S_,G", [(13, 1), (20, 3)])
 def test_flash_bwd_plain_equals_autograd(S_, G, window):

@@ -13,7 +13,8 @@ Phases, each printing one JSON line to stdout:
              rmsnorm_bwd) at 2e-2 (bf16) and 1e-4 (float32) of each output's
              max|grad|. Kernel, plain and one-PyTorch-call (``library_ms``, a
              yardstick the port never calls; autograd through it for a
-             backward) times
+             backward) times, inputs and outputs rotated over copies so
+             that no call finds the last one's data in L2
   reference  card kernel path against the CPU plain path, same weights:
              qwen3-14b widths with 2 layers, zamba2-7b widths with 7 layers
              (a group of 6 and a tail of 1), float32; qwen3-moe-30b-a3b widths
@@ -31,7 +32,8 @@ Phases, each printing one JSON line to stdout:
              float32, B 2, S 200: loss and every grad leaf of the card's kernel
              path against the CPU plain path (1e-4, 1e-4 of max|g|), then one
              train step on each (params within 1e-5 of their max); for MoE
-             the CPU side takes the card's expert ids
+             the CPU side takes the card's expert ids, its router held on
+             the card's input to each call (1e-5 of max|logit|)
   train staged  ``repro_torch.launch.train.train`` on the smoke phi4-mini-3.8b
              and granite-moe-1b-a400m (head dim 64, the kernels' smallest):
              corpus staged into the burst tier, 6 steps, checkpoints saved and
@@ -52,6 +54,7 @@ Run from the repository root:  python3 chip_smoke.py
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import json
@@ -130,15 +133,18 @@ def device_ms(torch, fn, iters: int = 10, warmup: int = 2, tries: int = 3):
 
 
 def rotating(sets):
-    """Call-by-call rotation over input copies, so a timed kernel does not
-    find its inputs in the 50 MB L2 from the previous call."""
+    """``run(fn)`` calls ``fn`` on the next of the input copies in turn, so a
+    timed kernel does not find its inputs in the 50 MB L2 from an earlier
+    call. Each call's output is kept for as many calls as there are copies,
+    so the allocator does not hand the next call the block the last one
+    wrote, whose dirty lines would still be in L2."""
     state = {"i": 0}
+    kept = collections.deque(maxlen=len(sets))
 
-    def next_set():
-        s = sets[state["i"] % len(sets)]
+    def run(fn):
+        kept.append(fn(sets[state["i"] % len(sets)]))
         state["i"] += 1
-        return s
-    return next_set
+    return run
 
 
 def copies_for(nbytes: int) -> int:
@@ -462,15 +468,15 @@ def run_kernel_phase(torch) -> dict:
                 extra["plain_err_vs_float64"] = compare(torch, case["plain"](a), want, tols)[0]
             isz = 2 if dtype_name == "bfloat16" else 4
             nbytes = case["nbytes"](isz)
-            sets = rotating([a] + [case["make"](dtypes[dtype_name])
-                                   for _ in range(copies_for(nbytes) - 1)])
-            ms = time_ms(torch, lambda: case["run"](sets()))
-            dev_ms = device_ms(torch, lambda: case["run"](sets()))
-            plain_ms = time_ms(torch, lambda: case["plain"](sets()))
+            rot = rotating([a] + [case["make"](dtypes[dtype_name])
+                                  for _ in range(copies_for(nbytes) - 1)])
+            ms = time_ms(torch, lambda: rot(case["run"]))
+            dev_ms = device_ms(torch, lambda: rot(case["run"]))
+            plain_ms = time_ms(torch, lambda: rot(case["plain"]))
             lib_ms = lib_dev_ms = None
             if case["library"]:
-                lib_ms = time_ms(torch, lambda: case["library"](sets()))
-                lib_dev_ms = device_ms(torch, lambda: case["library"](sets()))
+                lib_ms = time_ms(torch, lambda: rot(case["library"]))
+                lib_dev_ms = device_ms(torch, lambda: rot(case["library"]))
             bound_ms, bound_by = bound(nbytes, case["flops"], dtype_name)
             bytes_ms, ops_ms = bound_parts(nbytes, case["flops"], dtype_name)
             row = {"phase": "kernel", "kernel": case["kernel"], **case["desc"],
@@ -484,7 +490,7 @@ def run_kernel_phase(torch) -> dict:
                 failures.append(row)
             if case["main"] and dtype_name == case.get("dtypes", ("bfloat16",))[0]:
                 main_rows[(case["kernel"], case["main"])] = row
-            del sets, a, out, want
+            del rot, a, out, want
     if failures:
         raise AssertionError(f"{len(failures)} kernel case(s) disagree with the plain version")
     return main_rows
@@ -549,33 +555,35 @@ def run_reference_phase(torch, arch: str, n_layers: int, prompt: int) -> None:
 
 @contextlib.contextmanager
 def route_tape(torch, record=None, replay=None):
-    """Wrap ``repro_torch.models.moe.route`` for a comparison run. ``record``
-    (a list) gets each call's layer params, input, logits, w and idx.
-    ``replay`` (another run's record) makes the k-th call take the k-th
-    recorded expert ids, with w the renormalised probabilities at them (what
-    the routing gives for those ids); the tokens whose own top-k set differs
-    are counted in the yielded list's one entry."""
+    """Watch ``repro_torch.models.moe.route`` through ``moe.observe`` for a
+    comparison run. ``record`` (a list) gets each call's layer params,
+    input, logits, w and idx. ``replay`` (another run's record) makes the
+    k-th call take the k-th recorded expert ids, with w the renormalised
+    probabilities at them (what the routing gives for those ids), and holds
+    this side's router on the recorded call's input: the yielded dict gets
+    the worst router-logit error as a share of max|logit| (``logit_err``)
+    and the count of tokens whose own top-k set differs (``flips``)."""
     from repro_torch.models import moe
-    orig, calls, flips = moe.route, [0], [0]
+    calls, seen = [0], {"flips": 0, "logit_err": 0.0}
 
-    def route(p, x, cfg):
-        logits, probs, w, idx = orig(p, x, cfg)
+    def hook(p, x, logits, probs, w, idx):
         if replay is not None:
-            want = replay[calls[0]]["idx"].to(idx.device)
+            rec = replay[calls[0]]
             calls[0] += 1
-            flips[0] += int((idx.sort(-1).values != want.sort(-1).values).any(-1).sum())
+            want = rec["idx"].to(idx.device)
+            seen["flips"] += int((idx.sort(-1).values != want.sort(-1).values).any(-1).sum())
+            mine = rec["x"].to(x.device).float() @ p["router"]["w"].float()
+            seen["logit_err"] = max(seen["logit_err"],
+                                    _rel_to_max(torch, mine.cpu(), rec["logits"].cpu()))
             w = torch.gather(probs, -1, want)
             w, idx = (w / w.sum(-1, keepdim=True).clamp_min(1e-9)).to(x.dtype), want
         if record is not None:
             record.append({"p": p, "x": x.detach(), "logits": logits.detach(),
                            "w": w.detach(), "idx": idx})
-        return logits, probs, w, idx
+        return w, idx
 
-    moe.route = route
-    try:
-        yield flips
-    finally:
-        moe.route = orig
+    with moe.observe(route_hook=hook):
+        yield seen
 
 
 def run_moe_reference_phase(torch, arch: str, n_layers: int, prompt: int) -> None:
@@ -729,7 +737,10 @@ def run_train_reference_phase(torch, arch: str, n_layers: int = 2) -> dict:
 
     MoE: the card's routing is recorded and the CPU side takes the same
     expert ids call for call (``route_tape``), so that both compute one
-    function; the tokens whose own CPU top-k differed are reported."""
+    function. The CPU's router is held on the card's input to each call,
+    its logits within 1e-5 of max|logit|, so a fault in the card's routing
+    is not replayed unseen; the tokens whose own CPU top-k differed are
+    reported."""
     from repro_torch import optim
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
@@ -757,13 +768,13 @@ def run_train_reference_phase(torch, arch: str, n_layers: int = 2) -> dict:
             batch = {k: v.cpu() for k, v in batch.items()}
             torch.cuda.empty_cache()
         if cfg.family != "moe":
-            routing = contextlib.nullcontext([0])
+            routing = contextlib.nullcontext({"flips": 0, "logit_err": 0.0})
         elif side == "card":
             routing = route_tape(torch, record=tape)
         else:
             routing = route_tape(torch, replay=tape)
         t0 = time.perf_counter()
-        with routing as flips:
+        with routing as seen:
             loss, _, grads = loss_and_grads(model, params, batch, remat=rt.remat)
             grads = tree_map(lambda t: t.cpu(), grads)
             if side == "card":
@@ -783,7 +794,7 @@ def run_train_reference_phase(torch, arch: str, n_layers: int = 2) -> dict:
         sides[side] = {"loss": float(loss), "step_loss": float(metrics["loss"]),
                        "updated": updated,
                        "stepped": [t.detach().cpu() for t in leaves(state.params)],
-                       "s": time.perf_counter() - t0, "flips": flips[0]}
+                       "s": time.perf_counter() - t0, **seen}
         del state
     del tape
     card, cpu = sides["card"], sides["cpu"]
@@ -795,10 +806,12 @@ def run_train_reference_phase(torch, arch: str, n_layers: int = 2) -> dict:
            "loss_abs_err": loss_err, "loss_tol": 1e-4, "grad_err_of_max": grad_err,
            "grad_tol": 1e-4, "param_err_of_max_same_grads": param_err, "param_tol": 1e-5,
            "param_err_of_max_own_steps": own_err, "lr": rt.opt.lr,
-           **({"cpu_route_flips": cpu["flips"]} if cfg.family == "moe" else {}),
+           **({"router_logits_rel_err": cpu["logit_err"], "router_tol": 1e-5,
+               "cpu_route_flips": cpu["flips"]} if cfg.family == "moe" else {}),
            "card_s": card["s"], "cpu_s": cpu["s"], "launches": launches}
     emit(row)
     if not (loss_err < 1e-4 and grad_err < 1e-4 and param_err < 1e-5
+            and cpu["logit_err"] < 1e-5
             and card["step_loss"] == card["loss"] and cpu["step_loss"] == cpu["loss"]):
         raise AssertionError(f"train reference {arch}: the card's kernel path disagrees "
                              "with the CPU plain path")

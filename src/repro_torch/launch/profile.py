@@ -17,7 +17,7 @@ gathers/scatters/index ops and scans, everything else) and by kernel. On a
 MoE model the sort and gather categories hold the routing and dispatch (with
 the embedding lookup and, in training, the loss's gather); a further line
 splits the MoE layers' device time by function of ``models/moe.py``
-(``moe_breakdown``, spans put around them for that window only: one
+(``moe_breakdown``, ``models.moe.observe``'s spans on for that window only: one
 prefill and one decode step, or the train step's forward and recompute).
 Needs a CUDA device.
 
@@ -28,18 +28,17 @@ Run:  PYTHONPATH=src python -m repro_torch.launch.profile [--arch zamba2-7b] [--
 from __future__ import annotations
 
 import argparse
-import contextlib
 import dataclasses
 import json
 import re
 import time
 
 import torch
-from torch.profiler import ProfilerActivity, profile, record_function
+from torch.profiler import ProfilerActivity, profile
 
 from ..configs import get_config
 from ..device import resolve_device
-from ..models import build_model
+from ..models import build_model, moe
 
 CATEGORIES = (
     ("flash_attention", re.compile(r"flash_fwd_kernel")),
@@ -119,29 +118,6 @@ def profile_window(fn, device: torch.device, top: int) -> dict:
 MOE_FUNCTIONS = ("route", "dispatch_plan", "load_balance_aux", "experts")
 
 
-@contextlib.contextmanager
-def _moe_spans():
-    """Wrap each of ``MOE_FUNCTIONS`` in a ``record_function("moe.<name>")``
-    span while the breakdown window runs (the model's code is not changed,
-    and costs nothing when it is not profiled)."""
-    from ..models import moe
-    saved = {name: getattr(moe, name) for name in MOE_FUNCTIONS}
-
-    def spanned(name, fn):
-        def run(*args, **kwargs):
-            with record_function(f"moe.{name}"):
-                return fn(*args, **kwargs)
-        return run
-
-    for name, fn in saved.items():
-        setattr(moe, name, spanned(name, fn))
-    try:
-        yield
-    finally:
-        for name, fn in saved.items():
-            setattr(moe, name, fn)
-
-
 def _moe_function(event):
     """The innermost ``moe.<name>`` span around an op, else None."""
     names = set()
@@ -161,7 +137,8 @@ def moe_breakdown(fn, device: torch.device) -> dict:
     others) and the op to the spans around it; kernels launched from
     elsewhere, the autograd backward included, are left out."""
     torch.cuda.synchronize(device)
-    with _moe_spans(), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with moe.observe(spans=True), \
+            profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize(device)
     out: dict[str, dict[str, float]] = {}

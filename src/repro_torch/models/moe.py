@@ -19,16 +19,54 @@ no TPU kernel for them).
 
 ``moe_ffn`` returns the Switch load-balance auxiliary loss (Switch §2.2):
 ``aux = E * sum_e f_e * P_e``.
+
+``observe`` is the one hook for tools that watch the MoE layers (comparison
+runs, tests, ``launch/profile.py``): a routing hook that ``route`` calls
+with what it computed, and ``record_function("moe.<name>")`` spans around
+``route``, ``dispatch_plan``, ``experts`` and ``load_balance_aux``. Off, each
+costs one test per call.
 """
 
 from __future__ import annotations
 
+import contextlib
+import functools
+
 import torch
 import torch.nn.functional as F
+from torch.profiler import record_function
 
 from ..configs.base import ModelConfig
-from ..hints import flag
 from .layers import dense_init
+
+_ROUTE_HOOK = None     # hook(p, x, logits, probs, w, idx) -> (w, idx)
+_SPANS = False
+
+
+@contextlib.contextmanager
+def observe(route_hook=None, spans: bool = False):
+    """Inside, ``route`` passes each call's (p, x, logits, probs, w, idx) to
+    ``route_hook`` and returns the (w, idx) it gives back; with ``spans``,
+    each stage runs in a ``record_function("moe.<name>")`` span."""
+    global _ROUTE_HOOK, _SPANS
+    saved = _ROUTE_HOOK, _SPANS
+    _ROUTE_HOOK, _SPANS = route_hook, spans
+    try:
+        yield
+    finally:
+        _ROUTE_HOOK, _SPANS = saved
+
+
+def _spanned(fn):
+    name = f"moe.{fn.__name__}"
+
+    @functools.wraps(fn)
+    def run(*args, **kwargs):
+        if not _SPANS:
+            return fn(*args, **kwargs)
+        with record_function(name):
+            return fn(*args, **kwargs)
+    return run
 
 
 def moe_init(gen: torch.Generator, cfg: ModelConfig, *, dtype=torch.float32):
@@ -51,6 +89,7 @@ def _capacity(S: int, cfg: ModelConfig) -> int:
     return max(1, c)
 
 
+@_spanned
 def dispatch_plan(idx: torch.Tensor, E: int, C: int):
     """Per-row dispatch plan, batched over rows. idx: (B, S, k) expert ids.
 
@@ -77,6 +116,7 @@ def dispatch_plan(idx: torch.Tensor, E: int, C: int):
     return slot_tok, slots
 
 
+@_spanned
 def route(p, x: torch.Tensor, cfg: ModelConfig):
     """x: (B, S, d) -> (logits (B,S,E) f32, probs (B,S,E) f32, w (B,S,k) in
     x's dtype, renormalised, idx (B,S,k)); top-k sorted descending."""
@@ -84,16 +124,18 @@ def route(p, x: torch.Tensor, cfg: ModelConfig):
     probs = F.softmax(logits, dim=-1)
     w, idx = torch.topk(probs, cfg.experts_per_token, dim=-1)
     w = (w / w.sum(-1, keepdim=True).clamp_min(1e-9)).to(x.dtype)
+    if _ROUTE_HOOK is not None:
+        w, idx = _ROUTE_HOOK(p, x, logits, probs, w, idx)
     return logits, probs, w, idx
 
 
+@_spanned
 def experts(p, x: torch.Tensor, w: torch.Tensor, idx: torch.Tensor, cfg: ModelConfig):
     """Dispatch, expert products and combine for a given routing (w, idx).
 
-    x: (B, S, d) -> y (B, S, d). The baseline runs the products on an
-    (E, B*C, d) buffer; ``flag("moe2d")`` on (B, E, C, d). Each buffer is
-    gathered straight from x (a zero row appended for empty slots) in its own
-    row order, and each dispatch reads its expert output by row index (a
+    x: (B, S, d) -> y (B, S, d). The products run on an (E, B*C, d) buffer
+    gathered straight from x in (e, b, c) row order (a zero row appended for
+    empty slots), and each dispatch reads its expert output by row index (a
     zero row appended for drops): the same values as ``repro``'s transposes.
     """
     B, S, d = x.shape
@@ -105,25 +147,19 @@ def experts(p, x: torch.Tensor, w: torch.Tensor, idx: torch.Tensor, cfg: ModelCo
     b = torch.arange(B, device=dev)[:, None]
     src = torch.where(slot_tok < S, b * S + slot_tok, B * S)            # (B, E*C)
     x_pad = torch.cat([x.reshape(B * S, d), x.new_zeros((1, d))])
-    if flag("moe2d"):
-        buf = x_pad.index_select(0, src.reshape(-1)).view(B, E, C, d)
-        h = torch.einsum("becd,edf->becf", buf, p["gate"])
-        u = torch.einsum("becd,edf->becf", buf, p["up"])
-        out = torch.einsum("becf,efd->becd", F.silu(h) * u, p["down"])
-        row = b * (E * C) + slots                                        # (b, e, c) order
-    else:
-        rows = src.view(B, E, C).transpose(0, 1).reshape(-1)            # (e, b, c) order
-        buf = x_pad.index_select(0, rows).view(E, B * C, d)
-        h = torch.bmm(buf, p["gate"])
-        u = torch.bmm(buf, p["up"])
-        out = torch.bmm(F.silu(h) * u, p["down"])
-        row = torch.div(slots, C, rounding_mode="floor") * (B * C) + b * C + slots % C
+    rows = src.view(B, E, C).transpose(0, 1).reshape(-1)                # (e, b, c) order
+    buf = x_pad.index_select(0, rows).view(E, B * C, d)
+    h = torch.bmm(buf, p["gate"])
+    u = torch.bmm(buf, p["up"])
+    out = torch.bmm(F.silu(h) * u, p["down"])
+    row = torch.div(slots, C, rounding_mode="floor") * (B * C) + b * C + slots % C
     row = torch.where(slots < E * C, row, B * E * C)                   # drops: zero row
     out_pad = torch.cat([out.reshape(B * E * C, d), out.new_zeros((1, d))])
     y_rep = out_pad.index_select(0, row.reshape(-1)).view(B, S, k, d)
     return (y_rep * w[..., None]).sum(dim=2)
 
 
+@_spanned
 def load_balance_aux(probs: torch.Tensor, idx: torch.Tensor, E: int) -> torch.Tensor:
     """Switch aux: E * sum_e (fraction of dispatches to e) * (mean prob of e)."""
     flat = idx.reshape(-1)

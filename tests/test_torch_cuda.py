@@ -356,23 +356,20 @@ def _moe_layer(dev, arch, dtype, S, seed=0):
 
 
 @MOE_ARCHS
-@pytest.mark.parametrize("layout", ["baseline", "moe2d"])
-def test_moe_layer_matches_cpu_with_shared_routing(cuda_card, arch, layout):
+def test_moe_layer_matches_cpu_with_shared_routing(cuda_card, arch):
     """float32, B 2, S 64: the router logits on the card within 1e-5 of
     max|logit| of the CPU's on the same input; then the dispatch, expert
     products and combine fed the card's (w, idx) on both sides, y within
     1e-4 of max|y|, and the aux within 1e-5. The routing is shared because
     two correct top-k's may differ where two probabilities are within
     rounding of each other."""
-    from repro_torch.hints import flag_hint
     from repro_torch.models import moe
     from repro_torch.models.common import tree_map
     cfg, p, x = _moe_layer(cuda_card, arch, torch.float32, 64)
     pc, xc = tree_map(lambda t: t.cpu(), p), x.cpu()
-    with flag_hint(("moe2d",) if layout == "moe2d" else ()):
-        logits, probs, w, idx = moe.route(p, x, cfg)
-        y = moe.experts(p, x, w, idx, cfg)
-        y_cpu = moe.experts(pc, xc, w.cpu(), idx.cpu(), cfg)
+    logits, probs, w, idx = moe.route(p, x, cfg)
+    y = moe.experts(p, x, w, idx, cfg)
+    y_cpu = moe.experts(pc, xc, w.cpu(), idx.cpu(), cfg)
     assert _rel_err(logits.cpu(), moe.route(pc, xc, cfg)[0]) < 1e-5
     assert _rel_err(y.cpu(), y_cpu) < 1e-4
     aux = moe.load_balance_aux(probs, idx, cfg.n_experts)

@@ -3,9 +3,10 @@ granite-moe-1b-a400m, from repro's own ``init(PRNGKey(0))`` weights (and
 train state) carried across with ``repro_torch.convert``: the dispatch plan
 slot for slot (with and without drops), one MoE FFN (y and aux), the routing
 fed to both sides' dispatch/experts/combine, the loss, aux and every grad
-leaf, prefill and decode logits, the capacity-0.25 drop case, the ``moe2d``
-layout, remat, the float32 router leaf, the 5-step granite trajectory, and
-the train and serve drivers on the CPU with the MoE archs.
+leaf, prefill and decode logits, the capacity-0.25 drop case, remat, the
+float32 router leaf, the 5-step granite trajectory, the train and serve
+drivers on the CPU with the MoE archs, and ``moe.observe``, the hook that
+the comparison runs and the profiler watch the MoE layers through.
 
 Routing: both sides pick the top k of the same float32 probabilities, so a
 route can differ only where the k-th and (k+1)-th probability are within
@@ -32,12 +33,10 @@ import jax.numpy as jnp  # noqa: E402
 from repro import runtime as jruntime  # noqa: E402
 from repro import optim as joptim  # noqa: E402
 from repro.configs import get_smoke  # noqa: E402
-from repro.hints import mesh_hint  # noqa: E402
 from repro.models import build_model as jax_build_model  # noqa: E402
 from repro.models import moe as jmoe  # noqa: E402
 from repro_torch import optim, runtime  # noqa: E402
 from repro_torch.convert import from_numpy, train_state_from_numpy  # noqa: E402
-from repro_torch.hints import flag, flag_hint  # noqa: E402
 from repro_torch.models import build_model, moe  # noqa: E402
 from repro_torch.optim.adamw import leaves  # noqa: E402
 
@@ -94,20 +93,17 @@ def _port_grads(model, params, batch, remat=None):
 
 
 class _RouteLog:
-    """Records the input and the expert ids of every ``moe.route`` call (ids
-    sorted per token: the order inside the top k does not change the
-    dispatch)."""
+    """A ``moe.observe`` routing hook that records the input and the expert
+    ids of every ``moe.route`` call (ids sorted per token: the order inside
+    the top k does not change the dispatch)."""
 
-    def __init__(self, monkeypatch):
+    def __init__(self):
         self.inputs, self.ids = [], []
-        orig = moe.route
 
-        def recording(p, x, cfg):
-            out = orig(p, x, cfg)
-            self.inputs.append(x.detach().numpy().copy())
-            self.ids.append(torch.sort(out[3], dim=-1).values.numpy())
-            return out
-        monkeypatch.setattr(moe, "route", recording)
+    def __call__(self, p, x, logits, probs, w, idx):
+        self.inputs.append(x.detach().numpy().copy())
+        self.ids.append(torch.sort(idx, dim=-1).values.numpy())
+        return w, idx
 
 
 def _jax_routes(jparams, cfg, x_in):
@@ -127,6 +123,12 @@ def pair(request):
 
 def _layer(tree, i):
     return jax.tree.map(lambda a: a[i], tree)
+
+
+def _torch_layer(tparams, i):
+    """Layer ``i``'s MoE params of the port's stacked tree."""
+    m = tparams["layers"]["moe"]
+    return {"router": {"w": m["router"]["w"][i]}, **{k: m[k][i] for k in ("gate", "up", "down")}}
 
 
 # -- dispatch -------------------------------------------------------------------
@@ -156,19 +158,12 @@ def test_dispatch_plan_matches_repro(case):
     assert (dropped > 0) == (case != "room")
 
 
-@pytest.mark.parametrize("variant", ["baseline", "moe2d"])
-def test_moe_ffn_matches_repro(pair, variant):
-    """y and aux of layer 0's FFN on the same input, within 2e-5, under both
-    layouts (repro's flag set alike)."""
+def test_moe_ffn_matches_repro(pair):
+    """y and aux of layer 0's FFN on the same input, within 2e-5."""
     cfg, _, jparams, _, tparams = pair
     x = np.random.default_rng(5).standard_normal((B, S, cfg.d_model)).astype(np.float32)
-    flags = ("moe2d",) if variant == "moe2d" else ()
-    with mesh_hint(None, flags):
-        jy, jaux = jmoe.moe_ffn(_layer(jparams["layers"]["moe"], 0), jnp.asarray(x), cfg)
-    tp = {k: (v[0] if not isinstance(v, dict) else {kk: vv[0] for kk, vv in v.items()})
-          for k, v in tparams["layers"]["moe"].items()}
-    with flag_hint(flags):
-        ty, taux = moe.moe_ffn(tp, torch.from_numpy(x), cfg)
+    jy, jaux = jmoe.moe_ffn(_layer(jparams["layers"]["moe"], 0), jnp.asarray(x), cfg)
+    ty, taux = moe.moe_ffn(_torch_layer(tparams, 0), torch.from_numpy(x), cfg)
     np.testing.assert_allclose(ty.numpy(), np.asarray(jy), atol=FFN_TOL, rtol=FFN_TOL)
     assert float(taux) == pytest.approx(float(jaux), rel=FFN_TOL)
     assert float(taux) >= 1.0 - 1e-6
@@ -184,8 +179,7 @@ def test_experts_take_the_given_routing(pair):
     probs = jax.nn.softmax(jnp.asarray(x) @ jp["router"]["w"], axis=-1)
     w, idx = jax.lax.top_k(probs, cfg.experts_per_token)
     w = w / jnp.maximum(w.sum(-1, keepdims=True), 1e-9)
-    tp = {"router": {"w": tparams["layers"]["moe"]["router"]["w"][1]},
-          **{k: tparams["layers"]["moe"][k][1] for k in ("gate", "up", "down")}}
+    tp = _torch_layer(tparams, 1)
     logits, _, _, _ = moe.route(tp, torch.from_numpy(x), cfg)
     np.testing.assert_allclose(logits.numpy(), np.asarray(jnp.asarray(x) @ jp["router"]["w"]),
                                atol=1e-5, rtol=1e-5)
@@ -195,14 +189,14 @@ def test_experts_take_the_given_routing(pair):
 
 
 # -- model ------------------------------------------------------------------------
-def test_loss_and_aux_match_repro(pair, monkeypatch):
+def test_loss_and_aux_match_repro(pair):
     """Every (layer, token) route of this batch agrees with repro's (checked
     on the port's layer inputs), then loss within 1e-4 and aux within 2e-5."""
     cfg, jmodel, jparams, tmodel, tparams = pair
     batch = _batch(cfg)
     jl, jm = jmodel.loss(jparams, _jb(batch))
-    log = _RouteLog(monkeypatch)
-    with torch.no_grad():
+    log = _RouteLog()
+    with torch.no_grad(), moe.observe(route_hook=log):
         tl, tm = tmodel.loss(tparams, _tb(batch))
     assert len(log.ids) == cfg.n_layers
     for i, (ids, x_in) in enumerate(zip(log.ids, log.inputs)):
@@ -277,30 +271,15 @@ def test_capacity_drops_match_repro(arch):
     assert float(tm["aux"]) >= 1.0
 
 
-def test_moe2d_same_loss_and_grads(pair):
-    """As tests/test_variants.py:28: the (B, E, C, d) layout computes the
-    baseline's function, loss to 1e-6 and grads to 1e-5."""
-    cfg, _, _, tmodel, tparams = pair
-    batch = _tb(_batch(cfg, seq=64))
-    assert not flag("moe2d")
-    l0, a0, g0 = _port_grads(tmodel, tparams, batch)
-    with flag_hint(("moe2d",)):
-        assert flag("moe2d")
-        l1, a1, g1 = _port_grads(tmodel, tparams, batch)
-    assert not flag("moe2d")
-    assert l0 == pytest.approx(l1, abs=1e-6) and a0 == pytest.approx(a1, abs=1e-6)
-    for a, b in zip(g0, g1):
-        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-5)
-
-
-def test_remat_recomputes_the_same_routing(pair, monkeypatch):
+def test_remat_recomputes_the_same_routing(pair):
     """Under remat "full" each layer's routing runs again in the backward and
     picks the same experts; loss and grads equal those without remat."""
     cfg, _, _, tmodel, tparams = pair
     batch = _tb(_batch(cfg))
     l0, a0, g0 = _port_grads(tmodel, tparams, batch)
-    log = _RouteLog(monkeypatch)
-    l1, a1, g1 = _port_grads(tmodel, tparams, batch, remat="full")
+    log = _RouteLog()
+    with moe.observe(route_hook=log):
+        l1, a1, g1 = _port_grads(tmodel, tparams, batch, remat="full")
     L = cfg.n_layers
     assert len(log.ids) == 2 * L                       # forward, then recomputed in reverse
     for i in range(L):
@@ -391,19 +370,69 @@ def test_serve_driver_moe_on_cpu():
 
 
 def test_profile_traces_ops_to_moe_functions():
-    """``launch.profile``'s MoE breakdown puts spans around the functions of
-    ``models/moe.py`` for its window only and finds, for the ops of a smoke
+    """``launch.profile``'s MoE breakdown turns ``moe.observe``'s spans on
+    around the functions of ``models/moe.py`` for its window only and finds, for the ops of a smoke
     prefill, the function that ran each (host activity here; on the card the
     same walk sums the kernels of those ops)."""
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.launch.profile import _moe_function, _moe_spans
+    from repro_torch.launch.profile import _moe_function
     cfg = get_smoke("qwen3-moe-30b-a3b")
     model = build_model(cfg)
     params = model.init(torch.Generator().manual_seed(0))
-    route = moe.route
-    with _moe_spans(), profile(activities=[ProfilerActivity.CPU]) as prof:
+    with moe.observe(spans=True), profile(activities=[ProfilerActivity.CPU]) as prof:
         model.prefill(params, {"tokens": torch.randint(0, cfg.vocab_size, (2, 16))}, 20)
-    assert moe.route is route
+    assert not moe._SPANS
     found = {_moe_function(e) for e in prof.events() if e.name.startswith("aten::")}
     assert found == {None, "route", "dispatch_plan", "experts", "load_balance_aux"}
+
+
+def test_route_hook_sees_every_call_and_its_routing_is_used(pair):
+    """``moe.observe``'s routing hook sees each layer's call through the
+    model's own path (``transformer`` imports ``moe_ffn`` by name), a hook
+    that returns the routing unchanged leaves the loss as it was, and one
+    that replaces the expert ids changes the loss: the dispatch takes what
+    the hook gives back."""
+    cfg, _, _, tmodel, tparams = pair
+    batch = _tb(_batch(cfg))
+    with torch.no_grad():
+        base, _ = tmodel.loss(tparams, batch)
+        log = _RouteLog()
+        with moe.observe(route_hook=log):
+            same, _ = tmodel.loss(tparams, batch)
+
+        def shifted(p, x, logits, probs, w, idx):
+            return w, (idx + 1) % cfg.n_experts
+        with moe.observe(route_hook=shifted):
+            moved, _ = tmodel.loss(tparams, batch)
+    assert len(log.ids) == cfg.n_layers
+    assert float(same) == float(base)
+    assert float(moved) != float(base)
+    assert moe._ROUTE_HOOK is None
+
+
+@pytest.mark.parametrize("exit_by", ["return", "error"])
+def test_observe_is_off_outside_its_block(exit_by):
+    """Outside ``moe.observe`` no hook runs and no ``moe.*`` span is
+    recorded, also after the block was left by an error."""
+    from torch.profiler import ProfilerActivity, profile
+    cfg = get_smoke("qwen3-moe-30b-a3b")
+    p = moe.moe_init(torch.Generator().manual_seed(0), cfg)
+    x = torch.randn((B, S, cfg.d_model), generator=torch.Generator().manual_seed(1))
+    calls = []
+
+    def hook(p, x, logits, probs, w, idx):
+        calls.append(1)
+        return w, idx
+    try:
+        with moe.observe(route_hook=hook, spans=True):
+            moe.moe_ffn(p, x, cfg)
+            if exit_by == "error":
+                raise RuntimeError("left by an error")
+    except RuntimeError:
+        pass
+    assert calls == [1]
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        moe.moe_ffn(p, x, cfg)
+    assert calls == [1]
+    assert not [e.name for e in prof.events() if e.name.startswith("moe.")]

@@ -5,9 +5,10 @@ Phases, each printing one JSON line to stdout:
 
   build      compile every CUDA source with nvcc (one process each, in parallel)
   kernel     each kernel against its plain PyTorch version on the card, at the
-             shapes the qwen3-14b, zamba2-7b and qwen3-moe-30b-a3b serving
-             paths and the phi4-mini-3.8b and granite-moe-1b-a400m training
-             paths give it: bf16 (tolerance 2e-2) and
+             shapes the qwen3-14b, zamba2-7b, qwen3-moe-30b-a3b, gemma3-12b
+             (hd 256: local layers' window 1024 and the ring, global layers)
+             and internvl2-2b serving paths and the phi4-mini-3.8b and
+             granite-moe-1b-a400m training paths give it: bf16 (tolerance 2e-2) and
              float32 (2e-5, TF32 off); ssd_intra_chunk float32 only, 2e-4 on y
              and state and 1e-5 on tot; the backward kernels (flash_attention_bwd,
              rmsnorm_bwd) at 2e-2 (bf16) and 1e-4 (float32) of each output's
@@ -20,14 +21,23 @@ Phases, each printing one JSON line to stdout:
              (a group of 6 and a tail of 1), float32; qwen3-moe-30b-a3b widths
              with 2 layers, float32, held per routing call (router logits,
              and the experts fed the same routing on both sides) and on the
-             rows whose routes agree (``run_moe_reference_phase``)
+             rows whose routes agree (``run_moe_reference_phase``);
+             gemma3-12b widths with 6 layers (one block of 5 local and 1
+             global) and a 1030-token prompt, longer than the 1024-slot ring
+             and out of step with it; internvl2-2b widths with 2 layers and
+             seeded patch embeddings
   staged     ``repro_torch.launch.serve.serve`` publish -> stage through the
-             burst tier -> restore -> prefill 8 x 512 -> decode 32 tokens:
+             burst tier -> restore -> prefill 8 x 512 (gemma3 8 x 1536) ->
+             decode 32 tokens:
              qwen3-14b with 2 layers (~4.4 GB staged), zamba2-7b with 7
-             layers (~2.0 GB), qwen3-moe-30b-a3b with 2 layers (~3.7 GB)
-  full       qwen3-14b (40 layers), zamba2-7b (81 layers) and qwen3-moe-30b-a3b
-             (48 layers, ~61 GB), bf16, weights from a seeded generator on the
-             card, no staging: the same batch, timed
+             layers (~2.0 GB), qwen3-moe-30b-a3b with 2 layers (~3.7 GB),
+             gemma3-12b with 6 layers and prompt 1536 (the ring wraps),
+             internvl2-2b with 2 layers and 256 seeded patch embeddings
+  full       qwen3-14b (40 layers), zamba2-7b (81 layers), qwen3-moe-30b-a3b
+             (48 layers, ~61 GB), gemma3-12b (48 layers, ~23.5 GB, prompt
+             1536) and internvl2-2b (24 layers, 256 patches + prompt 512),
+             bf16, weights from a seeded generator on the card, no staging:
+             the same batch, timed
   train ref  phi4-mini-3.8b and granite-moe-1b-a400m widths with 2 layers,
              float32, B 2, S 200: loss and every grad leaf of the card's kernel
              path against the CPU plain path (1e-4, 1e-4 of max|g|), then one
@@ -80,6 +90,11 @@ SSD_TOLS = (2e-4, 2e-4, 1e-5)      # y, state, tot (tests/test_kernels.py:81-83)
 B, PROMPT, GEN = 8, 512, 32
 QWEN, ZAMBA, PHI = "qwen3-14b", "zamba2-7b", "phi4-mini-3.8b"
 QMOE, GRAN = "qwen3-moe-30b-a3b", "granite-moe-1b-a400m"
+GEM, INTERN = "gemma3-12b", "internvl2-2b"
+GEM_LOCAL = GEM + " local"                 # gemma3's local layers' kernel shapes
+# prompt tokens served (before internvl2's 256 patch embeddings): gemma3's
+# 1536 is longer than its 1024-slot ring and out of step with it
+SERVE_PROMPT = {GEM: 1536}
 TRAIN_B, TRAIN_S, TRAIN_STEPS = 4, 2048, 5
 TRAIN_LAYERS = {PHI: 8, GRAN: 24}          # phi4-mini cut to 8 of 32; granite at full depth
 
@@ -221,7 +236,7 @@ def kernel_cases(torch):
     for shape, main in [((B * PROMPT, 5120), QWEN), ((B * PROMPT * 40, 128), None),
                         ((B * PROMPT, 3584), ZAMBA), ((B * PROMPT, 7168), None),
                         ((TRAIN_B * TRAIN_S, 3072), PHI), ((B * PROMPT, 2048), QMOE),
-                        ((TRAIN_B * TRAIN_S, 1024), GRAN),
+                        ((TRAIN_B * TRAIN_S, 1024), GRAN), ((B * 1536, 3840), GEM),
                         ((2, 33, 128), None), ((1, 1, 512), None)]:
         def make(dtype, shape=shape):
             g = torch.Generator(device=dev).manual_seed(3)
@@ -268,7 +283,12 @@ def kernel_cases(torch):
             (2, 17, 32, 32, 112, None, None), (2, 65, 32, 32, 112, 64, None),
             (2, 300, 64, 8, 64, None, None), (2, 65, 64, 8, 64, 64, None),
             # qwen3-moe prefill (G 8) and granite training (hd 64, G 2)
-            (B, PROMPT, 32, 4, 128, None, QMOE), (TRAIN_B, TRAIN_S, 16, 8, 64, None, GRAN)]:
+            (B, PROMPT, 32, 4, 128, None, QMOE), (TRAIN_B, TRAIN_S, 16, 8, 64, None, GRAN),
+            # gemma3 prefill, hd 256: local layers (window 1024) and global
+            # ones; a ragged edge under a short window; internvl2's prefill
+            # (256 patches + 512 tokens)
+            (B, 1536, 16, 8, 256, 1024, GEM_LOCAL), (B, 1536, 16, 8, 256, None, GEM),
+            (2, 1000, 16, 8, 256, 100, None), (B, PROMPT + 256, 16, 8, 128, None, INTERN)]:
         pairs = sum(min(r + 1, window or r + 1) for r in range(S))   # valid (row, col)
         lse = main in TRAIN_LAYERS     # training writes each row's lse for the backward
         cases.append(dict(
@@ -364,14 +384,21 @@ def kernel_cases(torch):
             flops=8 * n, main=main))
 
     T, mid = PROMPT + GEN, PROMPT + GEN // 2      # mid: the main path's middle decode step
-    decode_shapes = [(40, 8, 128, kv_len, window, None)
+    decode_shapes = [(40, 8, 128, T, kv_len, window, None)
                      for kv_len in (1, 37, 300, T) for window in (None, 64)]
-    decode_shapes += [(40, 8, 128, mid, None, QWEN), (32, 32, 112, 1, None, None),
-                      (32, 32, 112, 300, None, None), (32, 32, 112, mid, None, ZAMBA),
-                      (32, 32, 112, 17, None, None), (32, 32, 112, T, None, None),
-                      (32, 32, 112, 17, 64, None), (32, 4, 128, mid, None, QMOE)]
-    for H, K, hd, kv_len, window, main in decode_shapes:
-        def make(dtype, H=H, K=K, hd=hd, kv_len=kv_len, window=window):
+    decode_shapes += [(40, 8, 128, T, mid, None, QWEN), (32, 32, 112, T, 1, None, None),
+                      (32, 32, 112, T, 300, None, None), (32, 32, 112, T, mid, None, ZAMBA),
+                      (32, 32, 112, T, 17, None, None), (32, 32, 112, T, T, None, None),
+                      (32, 32, 112, T, 17, 64, None), (32, 4, 128, T, mid, None, QMOE),
+                      # gemma3, hd 256: the local layers' 1024-slot ring, full
+                      # (as on the main path) and partly filled; a global
+                      # layer's cache at the first decode step; internvl2's
+                      (16, 8, 256, 1024, 1024, None, GEM_LOCAL),
+                      (16, 8, 256, 1024, 300, None, None),
+                      (16, 8, 256, 1536 + GEN, 1537, None, GEM),
+                      (16, 8, 128, 256 + T, 256 + mid, None, INTERN)]
+    for H, K, hd, T, kv_len, window, main in decode_shapes:
+        def make(dtype, H=H, K=K, hd=hd, T=T, kv_len=kv_len, window=window):
             g = torch.Generator(device=dev).manual_seed(1)
             a = {"q": randn(g, (B, 1, H, hd), dtype), "k": randn(g, (B, T, K, hd), dtype),
                  "v": randn(g, (B, T, K, hd), dtype), "window": window,
@@ -525,9 +552,17 @@ def expected_train_launches(cfg, steps: int, evals: int, remat: bool) -> dict:
             "flash_attention_bwd": steps * L}
 
 
+def patch_embeds(cfg, B: int, dev):
+    """internvl2's seeded patch embeddings on ``dev`` (None for other
+    families), as the serve driver makes them."""
+    from repro_torch.launch.serve import make_patch_embeds
+    return make_patch_embeds(cfg, B, dev, 2) if cfg.family == "vlm" else None
+
+
 def run_reference_phase(torch, arch: str, n_layers: int, prompt: int) -> None:
     """``arch``'s widths, ``n_layers`` layers, float32, B 2, gen 4: kernels on
-    the card against the plain path on the CPU, same weights and prompts."""
+    the card against the plain path on the CPU, same weights, prompts and
+    (internvl2) patch embeddings."""
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import generate
     from repro_torch.models import build_model
@@ -538,17 +573,23 @@ def run_reference_phase(torch, arch: str, n_layers: int, prompt: int) -> None:
     params = model.init(torch.Generator(device=dev).manual_seed(0))
     prompts = torch.randint(0, cfg.vocab_size, (2, prompt), device=dev,
                             generator=torch.Generator(device=dev).manual_seed(1))
-    card = generate(model, params, prompts, 4)
+    pe = patch_embeds(cfg, 2, dev)
+    t0 = time.perf_counter()
+    card = generate(model, params, prompts, 4, pe)
+    card_s = time.perf_counter() - t0
     cpu_params = tree_map(lambda t: t.cpu(), params)
     del params
     torch.cuda.empty_cache()
-    host = generate(model, cpu_params, prompts.cpu(), 4)
+    t0 = time.perf_counter()
+    host = generate(model, cpu_params, prompts.cpu(), 4, None if pe is None else pe.cpu())
+    cpu_s = time.perf_counter() - t0
     a, b = card["last_logits"].float().cpu(), host["last_logits"].float()
     rel = float((a - b).abs().max() / b.abs().max())
     same = bool(torch.equal(card["tokens"].cpu(), host["tokens"]))
     emit({"phase": "reference", "cfg": f"{arch} n_layers={n_layers} float32", "B": 2,
-          "prompt": prompt, "gen": 4, "logits_rel_err": rel, "tol": 1e-4,
-          "tokens_equal": same})
+          "prompt": prompt, "patches": 0 if pe is None else pe.shape[1], "gen": 4,
+          "logits_rel_err": rel, "tol": 1e-4, "tokens_equal": same, "card_s": card_s,
+          "cpu_s": cpu_s})
     if not (rel < 1e-4 and same):
         raise AssertionError(f"{arch}: card kernel path disagrees with the CPU plain path")
 
@@ -659,9 +700,10 @@ def run_staged_phase(torch, arch: str, n_layers: int) -> dict:
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import serve
     cfg = dataclasses.replace(get_config(arch), n_layers=n_layers)
+    prompt = SERVE_PROMPT.get(arch, PROMPT)
     t0 = time.perf_counter()
     ops.reset_launches()
-    res = serve(cfg, requests=B, prompt_len=PROMPT, gen=GEN, seed=0, device="cuda", log=log)
+    res = serve(cfg, requests=B, prompt_len=prompt, gen=GEN, seed=0, device="cuda", log=log)
     got = dict(ops.LAUNCHES)
     wall = time.perf_counter() - t0
     check_output(res["tokens"], cfg.padded_vocab, (B, GEN))
@@ -669,7 +711,8 @@ def run_staged_phase(torch, arch: str, n_layers: int) -> dict:
             and 0 < res["published_bytes"] - res["manifest_bytes"] < 1 << 20):
         raise AssertionError("staged bytes differ from what was published")
     emit({"phase": "staged", "cfg": f"{arch} n_layers={n_layers} bf16", "B": B,
-          "prompt": PROMPT, "gen": GEN, "stage_bytes": res["stage_bytes"],
+          "prompt": prompt, "patches": cfg.n_patches if cfg.family == "vlm" else 0,
+          "gen": GEN, "stage_bytes": res["stage_bytes"],
           "manifest_bytes": res["manifest_bytes"],
           "stage_modeled_s": res["stage_modeled_s"], "load_modeled_s": res["load_modeled_s"],
           "generated": list(res["generated"]), "prefill_s": res["prefill_s"],
@@ -693,12 +736,14 @@ def run_full_phase(torch, arch: str) -> dict:
     leaves = list(_leaves(params))
     n_params = sum(t.numel() for t in leaves)
     weight_bytes = sum(t.numel() * t.element_size() for t in leaves)
-    prompts = torch.randint(0, cfg.vocab_size, (B, PROMPT), device=dev,
+    prompt = SERVE_PROMPT.get(arch, PROMPT)
+    prompts = torch.randint(0, cfg.vocab_size, (B, prompt), device=dev,
                             generator=torch.Generator(device=dev).manual_seed(1))
-    generate(model, params, prompts, 2)                     # warm-up
+    pe = patch_embeds(cfg, B, dev)
+    generate(model, params, prompts, 2, pe)                 # warm-up
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
-    res = generate(model, params, prompts, GEN)
+    res = generate(model, params, prompts, GEN, pe)
     got = dict(ops.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     check_output(res["tokens"], cfg.padded_vocab, (B, GEN))
@@ -706,8 +751,9 @@ def run_full_phase(torch, arch: str) -> dict:
         raise AssertionError("non-finite logits")
     steps = GEN - 1
     emit({"phase": "full", "cfg": f"{arch} {cfg.n_layers} layers bf16", "params": n_params,
-          "weight_bytes": weight_bytes, "init_s": init_s, "B": B, "prompt": PROMPT,
-          "gen": GEN, "prefill_ms": res["prefill_s"] * 1e3,
+          "weight_bytes": weight_bytes, "init_s": init_s, "B": B, "prompt": prompt,
+          "patches": 0 if pe is None else pe.shape[1], "gen": GEN,
+          "prefill_ms": res["prefill_s"] * 1e3,
           "decode_ms_per_step": res["decode_s"] / steps * 1e3,
           "decode_tokens_per_s": B * steps / res["decode_s"],
           "tokens_per_s": B * GEN / (res["prefill_s"] + res["decode_s"]),
@@ -977,8 +1023,13 @@ def main() -> int:
     run_reference_phase(torch, ZAMBA, 7, 160)
     torch.cuda.empty_cache()
     run_moe_reference_phase(torch, QMOE, 2, 32)
+    torch.cuda.empty_cache()
+    run_reference_phase(torch, GEM, 6, 1030)
+    torch.cuda.empty_cache()
+    run_reference_phase(torch, INTERN, 2, 32)
+    log(f"chip_smoke: reference phases done at {time.perf_counter() - t_start:.1f} s")
     launches = {}
-    for arch, staged_layers in ((QWEN, 2), (ZAMBA, 7), (QMOE, 2)):
+    for arch, staged_layers in ((QWEN, 2), (ZAMBA, 7), (QMOE, 2), (GEM, 6), (INTERN, 2)):
         torch.cuda.empty_cache()
         launches[f"staged {arch}"] = run_staged_phase(torch, arch, staged_layers)
         torch.cuda.empty_cache()

@@ -6,8 +6,12 @@ Runs on the card (the port's kernels) unless ``--device cpu`` is given; on
 the card the reduced config takes head dim 64, the attention kernels'
 smallest (its own is 32).
 
+gemma3-12b's reduced config keeps a 32-slot ring on its local layers, so the
+48-token prompt wraps it (also at head dim 64); internvl2-2b puts 16 seeded
+patch embeddings before each prompt.
+
 Run:  PYTHONPATH=src python examples/torch_serve_decode.py [--device cpu]
-      [--arch qwen3-moe-30b-a3b]
+      [--arch qwen3-moe-30b-a3b | gemma3-12b | internvl2-2b]
 """
 
 import argparse
@@ -18,6 +22,7 @@ import torch
 
 from repro_torch.configs import get_smoke
 from repro_torch.device import resolve_device
+from repro_torch.launch.serve import make_patch_embeds
 from repro_torch.models import build_model
 
 ap = argparse.ArgumentParser()
@@ -34,7 +39,12 @@ model = build_model(cfg)
 params = model.init(torch.Generator(device=dev).manual_seed(0))
 prompts = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT), device=dev,
                         generator=torch.Generator(device=dev).manual_seed(1))
-S_max = PROMPT + GEN
+batch = {"tokens": prompts}
+n_prefix = 0
+if cfg.family == "vlm":
+    batch["patch_embeds"] = make_patch_embeds(cfg, BATCH, dev, 2)
+    n_prefix = cfg.n_patches
+S_max = n_prefix + PROMPT + GEN
 
 
 def sync():
@@ -44,7 +54,7 @@ def sync():
 
 print(f"[{args.arch}] prefill {BATCH} requests x {PROMPT} tokens on {dev.type} ...")
 t0 = time.perf_counter()
-logits, cache = model.prefill(params, {"tokens": prompts}, S_max)
+logits, cache = model.prefill(params, batch, S_max)
 sync()
 print(f"prefill: {time.perf_counter() - t0:.2f}s")
 
@@ -62,5 +72,5 @@ print(f"decoded {GEN - 1} steps x {BATCH} seqs in {dt:.2f}s "
       f"({(GEN - 1) * BATCH / dt:.1f} tok/s on {dev.type})")
 print("sample continuation (request 0):", out[0].tolist())
 assert out.shape == (BATCH, GEN)
-assert int(cache["pos"]) == PROMPT + GEN - 1
+assert int(cache["pos"]) == n_prefix + PROMPT + GEN - 1
 print("OK")

@@ -30,14 +30,19 @@
 //   plan_splits() in kernels/decode_attention.py: about 4 blocks per SM, in
 //   multiples of 16 rows (zamba2-7b, B*K = 256, T = 544: 2 splits of 272;
 //   qwen3-14b, B*K = 64, T = 544: 7 splits of 80). Each block streams its
-//   rows through a 3-stage cp.async ring of 32-row K and V tiles, 16-byte
-//   loads kept as bf16 in shared memory, rows past the valid range
-//   zero-filled. Each warp takes 8 rows of a tile; a row is 16 lanes of 8
-//   columns (8 lanes at hd 64), so a warp scores 2 (4) rows at once with
-//   float32 FMAs and shuffles within the row's lanes, for up to 8 query
-//   heads held in registers. Every warp works whatever H/K is. Each warp
-//   keeps its own running max, sum and acc; the 4 warps merge through shared
-//   memory once per chunk.
+//   rows through a 3-stage cp.async ring of 32-row K and V tiles (16 at hd
+//   256, below), 16-byte loads kept as bf16 in shared memory, rows past the
+//   valid range zero-filled. Each warp takes a quarter of a tile's rows; a row is 16
+//   lanes of 8 columns (8 lanes at hd 64, the whole warp at hd 256), so a
+//   warp scores 2 (4, 1) rows at once with float32 FMAs and shuffles within
+//   the row's lanes, for up to 8 query heads held in registers. Every warp
+//   works whatever H/K is. Each warp keeps its own running max, sum and
+//   acc; the 4 warps merge through shared memory once per chunk.
+//   At hd 256 (gemma3-12b) the ring's tiles are 16 rows, so a stage holds
+//   the same 16 KB of K and V as at hd 128 and the 3-stage ring stays at
+//   48 KB, the most a block takes without cudaFuncSetAttribute; four blocks
+//   still fit an SM. On gemma3's local layers the cache is the W = 1024-slot
+//   ring (position p at slot p % W), read with kv_len = min(pos + 1, W).
 //
 // float32 -- decode_split_kernel, plain FMAs on chunks of CH = 64 rows
 //   converted to float32 in shared memory (the float32 path keeps its 2e-5
@@ -196,7 +201,6 @@ __global__ void decode_combine_kernel(const float* __restrict__ part_m,
 namespace hopper {
 
 constexpr int NWARPS = NTHREADS / 32;
-constexpr int SUB = 32;          // cache rows per ring stage
 constexpr int STAGES = 3;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
@@ -219,6 +223,9 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
+// Cache rows per ring stage: 32, or 16 at hd 256, so a stage stays 16 KB.
+__host__ __device__ constexpr int ring_rows(int hd) { return hd > 128 ? 16 : 32; }
+
 // 8 bf16 (16 bytes) to float32
 __device__ __forceinline__ void unpack8(const uint4& u, float (&f)[8]) {
   const uint32_t w[4] = {u.x, u.y, u.z, u.w};
@@ -237,9 +244,12 @@ decode_split_kernel_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat1
                          float* __restrict__ part_m, float* __restrict__ part_l,
                          float* __restrict__ part_acc, int T_len, int H, int K, int window,
                          float scale_log2, int chunk) {
+  constexpr int SUB = ring_rows(HD);
   constexpr int VPR = HD / 8;                  // 16-byte vectors per row
-  constexpr int LPR = VPR <= 8 ? 8 : 16;       // lanes per row
+  constexpr int LPR = VPR <= 8 ? 8 : VPR <= 16 ? 16 : 32;   // lanes per row
   constexpr int RPS = 32 / LPR;                // rows a warp scores at once
+  static_assert(VPR <= 32 && SUB % (NWARPS * RPS) == 0,
+                "a row spans at most a warp, one vector a lane");
   constexpr int STEPS = SUB / NWARPS / RPS;
   constexpr int ROW_BYTES = HD * 2;
   constexpr int STAGE_BYTES = 2 * SUB * ROW_BYTES;
@@ -451,7 +461,7 @@ template <int HD, int GT>
 cudaError_t launch_split(const void* q, const void* k, const void* v, const int* kv_len,
                          float* pm, float* pl, float* pa, int B, int T_len, int H, int K,
                          int window, int chunk, int nsplit, cudaStream_t stream) {
-  constexpr int smem = STAGES * 2 * SUB * HD * 2;
+  constexpr int smem = STAGES * 2 * ring_rows(HD) * HD * 2;
   static_assert(smem >= NWARPS * GT * (HD + 2) * 4, "merge area exceeds the ring");
   static_assert(smem <= 48 * 1024, "above 48 KB needs cudaFuncSetAttribute");
   auto kern = decode_split_kernel_bf16<HD, GT>;
@@ -498,6 +508,7 @@ cudaError_t dispatch_hd(const void* q, const void* k, const void* v, const int* 
     case 64: return launch<64>(q, k, v, kv_len, o, pm, pl, pa, B, T_len, H, K, window, chunk, st);
     case 112: return launch<112>(q, k, v, kv_len, o, pm, pl, pa, B, T_len, H, K, window, chunk, st);
     case 128: return launch<128>(q, k, v, kv_len, o, pm, pl, pa, B, T_len, H, K, window, chunk, st);
+    case 256: return launch<256>(q, k, v, kv_len, o, pm, pl, pa, B, T_len, H, K, window, chunk, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -534,6 +545,7 @@ cudaError_t dispatch_hd(const void* q, const void* k, const void* v, const int* 
     case 64: return launch<T, 64>(q, k, v, kv_len, o, pm, pl, pa, B, T_len, H, K, window, st);
     case 112: return launch<T, 112>(q, k, v, kv_len, o, pm, pl, pa, B, T_len, H, K, window, st);
     case 128: return launch<T, 128>(q, k, v, kv_len, o, pm, pl, pa, B, T_len, H, K, window, st);
+    case 256: return launch<T, 256>(q, k, v, kv_len, o, pm, pl, pa, B, T_len, H, K, window, st);
     default: return cudaErrorInvalidValue;
   }
 }

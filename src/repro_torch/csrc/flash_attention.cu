@@ -18,7 +18,9 @@
 // hd 112/128) the bound is near balance: ~21.5 GFLOP of causal work is
 // 0.022 ms on the bf16 tensor cores, the q/k/v/o bytes 0.030 ms at HBM rate.
 // Either way only the tensor cores can get near it; float32 FMAs top out at
-// 67 TFLOP/s.
+// 67 TFLOP/s. At gemma3-12b's prefill (B 8, S = T = 1536, 16/8 heads,
+// hd 256) the operations bound it: ~155 GFLOP causal (0.157 ms), ~138 with
+// the local layers' 1024-key window, against 302 MB of q/k/v/o (0.090 ms).
 //
 // Two kernels, chosen by dtype (not a fallback: each dtype has one kernel):
 //
@@ -46,13 +48,26 @@
 //   (the MN-major swizzle atom is 64 columns wide), so at zamba2's shape the
 //   second product does 14% more MMA work than it needs; the 16 pad columns
 //   are dropped at the epilogue.
+//   hd 256 (gemma3) keeps the same tiles and 2-stage ring: a row is four
+//   boxes, Q.K^T runs 16 k-steps, and P.V runs as two N = 128 products on
+//   the halves of V (columns 0-127 and 128-255) into the two halves of O.
+//   Shared memory is then 1024 + 4 * 128 * (64 + 2 * 2 * 64) = 164,864 B,
+//   so one CTA runs on an SM (__launch_bounds__(NTHREADS, 1) at hd 256):
+//   the O accumulator alone is 128 float32 registers a thread beside the
+//   32 of the S tile and 16 of P (ptxas: 206 registers, no spill), above
+//   the 204 that two CTAs of 160 threads leave each. A 32-key single-stage
+//   variant that keeps two CTAs an SM would lose the load/compute overlap
+//   of the ring instead; this one keeps the tile loop and the ring as they
+//   are at hd 128, and is the simple one that is right first.
 //
 // float32 -- flash_fwd_kernel, plain FMAs: no tensor-core mode keeps the
 //   2e-5 float32 tolerance (TF32 keeps ~3 digits). One block per (64-row q
 //   tile, b*H + h), 128 threads, each holding 8 query rows x BK/16 score
 //   columns and 8 rows x HD/16 output columns in registers; tiles converted
 //   to float32 in shared memory (rows padded by one word); tiles outside the
-//   band skipped, ragged edges masked.
+//   band skipped, ragged edges masked. At hd 256 those tiles take 213,760 B
+//   of dynamic shared memory, under the 232,448 a block may have; the launch
+//   asks for exactly that with cudaFuncSetAttribute.
 
 #include <cmath>
 
@@ -256,7 +271,8 @@ using namespace sm90;
 // memory at hd 112/128, so two CTAs share an SM and one's loads and
 // epilogue hide behind the other's products. A 128-row tile on two
 // warpgroups with 128-row kv tiles needs 160 KB, one CTA an SM, and ran
-// slower at both serving shapes.
+// slower at both serving shapes. At hd 256 these tiles take 161 KB, and
+// one CTA runs on an SM (the header says why).
 constexpr int BQ = 64;
 constexpr int BK = 64;
 constexpr int STAGES = 2;
@@ -267,15 +283,19 @@ constexpr float LN2 = 0.6931471805599453f;
 // Accumulator fragment of m64nN (per warpgroup): thread t = 32 w + l holds,
 // for each 8-column block j, d[4j + e] at row 16 w + l / 4 + 8 (e / 2) and
 // column 8 j + 2 (l % 4) + e % 2. Rows l/4 ("a") and l/4 + 8 ("b").
+// O of hd 256 is two such m64n128 fragments, acc[0] for columns 0-127 and
+// acc[1] for 128-255.
 template <int HD>
-__global__ void __launch_bounds__(NTHREADS, 2)
+__global__ void __launch_bounds__(NTHREADS, HD > 128 ? 1 : 2)
 flash_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q,
                        const __grid_constant__ CUtensorMap tm_k,
                        const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ o,
                        float* __restrict__ lse, int B, int S, int T_len, int H, int K,
                        int causal, int window, float scale_log2) {
   constexpr int NB = (HD + BOX - 1) / BOX;          // TMA boxes per row
-  constexpr int HDP = NB * BOX;                     // padded head dim (P.V's N)
+  constexpr int HDP = NB * BOX;                     // padded head dim
+  constexpr int NH = HDP > 128 ? HDP / 128 : 1;     // P.V products of N = HDP / NH
+  constexpr int PVN = HDP / NH;
   constexpr int Q_BYTES = NB * BQ * 128;
   constexpr int KV_BYTES = NB * BK * 128;
   extern __shared__ uint8_t smem_raw[];
@@ -352,9 +372,11 @@ flash_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q,
   const int q_hi = q0 + BQ - 1;
   const int cq = 2 * (lane % 4);
 
-  float acc[HDP / 2];
+  float acc[NH][PVN / 2];
 #pragma unroll
-  for (int i = 0; i < HDP / 2; ++i) acc[i] = 0.f;
+  for (int hf = 0; hf < NH; ++hf)
+#pragma unroll
+    for (int i = 0; i < PVN / 2; ++i) acc[hf][i] = 0.f;
   float m_a = NEG, m_b = NEG, l_a = 0.f, l_b = 0.f;
 
   mbar_wait(bar_q, 0);
@@ -427,24 +449,32 @@ flash_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q,
     l_a = l_a * alpha_a + rs_a;        // a partial over this lane's columns;
     l_b = l_b * alpha_b + rs_b;        // the quad is summed at the end
 #pragma unroll
-    for (int j = 0; j < HDP / 8; ++j) {
-      acc[4 * j] *= alpha_a;
-      acc[4 * j + 1] *= alpha_a;
-      acc[4 * j + 2] *= alpha_b;
-      acc[4 * j + 3] *= alpha_b;
-    }
+    for (int hf = 0; hf < NH; ++hf)
+#pragma unroll
+      for (int j = 0; j < PVN / 8; ++j) {
+        acc[hf][4 * j] *= alpha_a;
+        acc[hf][4 * j + 1] *= alpha_a;
+        acc[hf][4 * j + 2] *= alpha_b;
+        acc[hf][4 * j + 3] *= alpha_b;
+      }
 
     // O += P . V, V MN-major: 64-column blocks BK*128 bytes apart, 8-row
-    // groups 1024 bytes apart, a k-step of 16 rows 2048 bytes on.
-    fence_regs(acc);
+    // groups 1024 bytes apart, a k-step of 16 rows 2048 bytes on; the
+    // product hf of hd 256 starts PVN / 64 blocks on.
+#pragma unroll
+    for (int hf = 0; hf < NH; ++hf) fence_regs(acc[hf]);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk)
-      wgmma_rs<HDP>(acc, pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2], pa[4 * kk + 3],
-                    sw128_desc(sv(s) + kk * 2048, BK * 128, 1024));
+#pragma unroll
+      for (int hf = 0; hf < NH; ++hf)
+        wgmma_rs<PVN>(acc[hf], pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2], pa[4 * kk + 3],
+                      sw128_desc(sv(s) + hf * (PVN / BOX) * BK * 128 + kk * 2048, BK * 128,
+                                 1024));
     wgmma_commit();
     wgmma_wait_all();
-    fence_regs(acc);
+#pragma unroll
+    for (int hf = 0; hf < NH; ++hf) fence_regs(acc[hf]);
 
     __syncwarp();
     if (lane == 0) mbar_arrive(empty(s));     // this stage may be refilled
@@ -460,16 +490,18 @@ flash_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q,
   const int64_t q_row = (int64_t)H * HD;
   __nv_bfloat16* ob = o + (int64_t)b * S * q_row + (int64_t)h * HD;
 #pragma unroll
-  for (int j = 0; j < HDP / 8; ++j) {
-    const int col = 8 * j + cq;
-    if (col >= HD) continue;
-    if (row_a < S)
-      *reinterpret_cast<__nv_bfloat162*>(ob + (int64_t)row_a * q_row + col) =
-          __floats2bfloat162_rn(acc[4 * j] * inv_a, acc[4 * j + 1] * inv_a);
-    if (row_b < S)
-      *reinterpret_cast<__nv_bfloat162*>(ob + (int64_t)row_b * q_row + col) =
-          __floats2bfloat162_rn(acc[4 * j + 2] * inv_b, acc[4 * j + 3] * inv_b);
-  }
+  for (int hf = 0; hf < NH; ++hf)
+#pragma unroll
+    for (int j = 0; j < PVN / 8; ++j) {
+      const int col = hf * PVN + 8 * j + cq;
+      if (col >= HD) continue;
+      if (row_a < S)
+        *reinterpret_cast<__nv_bfloat162*>(ob + (int64_t)row_a * q_row + col) =
+            __floats2bfloat162_rn(acc[hf][4 * j] * inv_a, acc[hf][4 * j + 1] * inv_a);
+      if (row_b < S)
+        *reinterpret_cast<__nv_bfloat162*>(ob + (int64_t)row_b * q_row + col) =
+            __floats2bfloat162_rn(acc[hf][4 * j + 2] * inv_b, acc[hf][4 * j + 3] * inv_b);
+    }
   // m is in log2 units of the scaled score: lse = (m + log2 l) ln 2
   if (lse != nullptr && lane % 4 == 0) {
     float* lb = lse + ((int64_t)b * H + h) * S;
@@ -506,6 +538,7 @@ cudaError_t dispatch_hd(const void* q, const void* k, const void* v, void* o, fl
     case 64: return launch<64>(q, k, v, o, lse, B, S, T_len, H, K, causal, window, stream);
     case 112: return launch<112>(q, k, v, o, lse, B, S, T_len, H, K, causal, window, stream);
     case 128: return launch<128>(q, k, v, o, lse, B, S, T_len, H, K, causal, window, stream);
+    case 256: return launch<256>(q, k, v, o, lse, B, S, T_len, H, K, causal, window, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -520,6 +553,7 @@ cudaError_t dispatch_hd(const void* q, const void* k, const void* v, void* o, fl
     case 64: return launch<T, 64>(q, k, v, o, lse, B, S, T_len, H, K, causal, window, stream);
     case 112: return launch<T, 112>(q, k, v, o, lse, B, S, T_len, H, K, causal, window, stream);
     case 128: return launch<T, 128>(q, k, v, o, lse, B, S, T_len, H, K, causal, window, stream);
+    case 256: return launch<T, 256>(q, k, v, o, lse, B, S, T_len, H, K, causal, window, stream);
     default: return cudaErrorInvalidValue;
   }
 }

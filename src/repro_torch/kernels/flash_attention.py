@@ -23,7 +23,10 @@ from . import build
 
 _NEG = -2.0e38
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (64, 112, 128)
+HEAD_DIMS = (64, 112, 128, 256)
+# the backward kernel's; hd 256 (gemma3) waits for ROADMAP Queue 1's
+# "gemma3 training" item
+BWD_HEAD_DIMS = (64, 112, 128)
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {"flash_attention_fwd": [_P] * 5 + [_I] * 9 + [_P]}
 _BWD_SIGNATURES = {"flash_attention_bwd": [_P] * 11 + [_I] * 9 + [_P]}
@@ -88,6 +91,13 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def check_bwd_head_dim(hd: int) -> None:
+    """Raise for a head dim the backward kernel does not take."""
+    if hd not in BWD_HEAD_DIMS:
+        raise ValueError(f"flash_attention_bwd: head dim {hd} not in {BWD_HEAD_DIMS}; the "
+                         "hd-256 backward is ROADMAP Queue 1's \"gemma3 training\" item")
+
+
 def _check(q, k, v):
     if not (q.is_cuda and k.is_cuda and v.is_cuda):
         raise ValueError("flash_attention_cuda takes CUDA tensors")
@@ -136,6 +146,7 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check(q, k, v)
     B, S, H, hd = q.shape
     T, K = k.shape[1], k.shape[2]
+    check_bwd_head_dim(hd)
     for name, t in (("o", o), ("dout", dout)):
         if t.shape != q.shape or t.dtype != q.dtype or not t.is_contiguous() or not t.is_cuda:
             raise ValueError(f"flash_attention_bwd_cuda: {name} must be a contiguous CUDA "

@@ -13,9 +13,10 @@ Training: where autograd needs a gradient of ``rmsnorm`` or
 ``torch.autograd.Function`` whose forward launches the forward kernel (which
 also writes what the backward reads: each row's ``inv``, or its log-sum-exp)
 and whose backward launches the backward kernel (``rmsnorm_bwd``,
-``flash_attention_bwd``). Without a gradient (``inference_mode``, serving)
-the forward kernels launch exactly as before. On the CPU autograd runs
-through the plain versions.
+``flash_attention_bwd``; at head dim 256 the backward kernel is missing, and
+the call raises ``ValueError`` before the forward runs). Without a gradient
+(``inference_mode``, serving) the forward kernels launch exactly as before.
+On the CPU autograd runs through the plain versions.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ import torch
 
 from .decode_attention import decode_attention_cuda, decode_attention_plain
 from .flash_attention import (
+    check_bwd_head_dim,
     flash_attention_bwd_cuda,
     flash_attention_cuda,
     flash_attention_plain,
@@ -110,6 +112,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if not _on_cuda(q, "flash_attention"):
         return flash_attention_plain(q, k, v, causal=causal, window=window)
     if _wants_grad(q, k, v):
+        check_bwd_head_dim(q.shape[-1])           # before the forward, not in the backward
         return _FlashAttention.apply(q, k, v, causal, window)
     out = flash_attention_cuda(q, k, v, causal=causal, window=window)
     LAUNCHES["flash_attention"] += 1

@@ -2,7 +2,9 @@
 breakdown.
 
 Serving: builds the model (qwen3-14b by default, ``--arch zamba2-7b`` for
-the hybrid, ``--arch qwen3-moe-30b-a3b`` for MoE; all its layers, bf16,
+the hybrid, ``--arch qwen3-moe-30b-a3b`` for MoE, ``--arch gemma3-12b
+--prompt-len 1536`` for the local/global pattern over a wrapped ring,
+``--arch internvl2-2b`` with seeded patch embeddings; all its layers, bf16,
 random weights from ``--seed``), warms up,
 then profiles two windows separately: one batched prefill, and the greedy
 decode steps that follow it. Training (``--train``): phi4-mini-3.8b by
@@ -39,6 +41,7 @@ from torch.profiler import ProfilerActivity, profile
 from ..configs import get_config
 from ..device import resolve_device
 from ..models import build_model, moe
+from .serve import make_patch_embeds
 
 CATEGORIES = (
     ("flash_attention", re.compile(r"flash_fwd_kernel")),
@@ -218,10 +221,13 @@ def main(argv=None) -> dict:
     B, P, G = args.requests, args.prompt_len, args.gen
     prompts = torch.randint(0, cfg.vocab_size, (B, P), device=dev,
                             generator=torch.Generator(device=dev).manual_seed(args.seed + 1))
-    S_max = P + G
+    batch = {"tokens": prompts}
+    if cfg.family == "vlm":
+        batch["patch_embeds"] = make_patch_embeds(cfg, B, dev, args.seed + 2)
+    S_max = P + G + cfg.n_patches * (cfg.family == "vlm")
 
     def prefill():
-        return model.prefill(params, {"tokens": prompts}, S_max)
+        return model.prefill(params, batch, S_max)
 
     logits, cache = prefill()                                   # warm-up
     model.decode_step(params, cache, {"token": torch.argmax(logits, -1)})

@@ -7,9 +7,13 @@ provisioned, the weights are staged into it once and every replica loads
 from there (modeled time reported), then requests are decoded with a KV
 cache. Prefill and decode run the port's kernels on the card.
 
+A VLM (internvl2-2b) is served with seeded patch embeddings in place of
+its vision frontend (``make_patch_embeds``), put before each prompt.
+
 Run:  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-14b --requests 8
-      (``--arch zamba2-7b`` for the Mamba2 hybrid; add ``--device cpu`` to run
-      the plain path on the CPU)
+      (``--arch zamba2-7b`` for the Mamba2 hybrid, ``--arch gemma3-12b`` for
+      the local/global pattern, ``--arch internvl2-2b`` for the VLM; add
+      ``--device cpu`` to run the plain path on the CPU)
 """
 
 from __future__ import annotations
@@ -35,6 +39,7 @@ from ..core import (
 from ..core.staging import stage_tree
 from ..device import resolve_device
 from ..models import Model, build_model
+from ..models.layers import dtype_of
 
 
 def _sync(device: torch.device) -> None:
@@ -42,15 +47,31 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def generate(model: Model, params, prompts: torch.Tensor, gen: int) -> dict:
-    """Batched prefill of ``prompts`` (B, P), then ``gen - 1`` greedy decode
-    steps. Returns the tokens (B, gen) and the host-clock times, each ending
-    in a device synchronise."""
+def make_patch_embeds(cfg: ModelConfig, B: int, device, seed: int) -> torch.Tensor:
+    """A VLM's stand-in for its vision frontend: (B, n_patches, d_model)
+    patch embeddings, 0.1 * N(0, 1) from ``seed`` (as ``repro``'s model tests
+    make them), in the model's dtype."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    pe = 0.1 * torch.randn((B, cfg.n_patches, cfg.d_model), generator=g, device=device)
+    return pe.to(dtype_of(cfg))
+
+
+def generate(model: Model, params, prompts: torch.Tensor, gen: int,
+             patch_embeds: torch.Tensor | None = None) -> dict:
+    """Batched prefill of ``prompts`` (B, P), after ``patch_embeds`` (B,
+    n_patches, d) where given, then ``gen - 1`` greedy decode steps. Returns
+    the tokens (B, gen) and the host-clock times, each ending in a device
+    synchronise."""
     B, P = prompts.shape
     device = prompts.device
+    batch = {"tokens": prompts}
+    n_prefix = 0
+    if patch_embeds is not None:
+        batch["patch_embeds"] = patch_embeds
+        n_prefix = patch_embeds.shape[1]
     _sync(device)
     t0 = time.perf_counter()
-    logits, cache = model.prefill(params, {"tokens": prompts}, P + gen)
+    logits, cache = model.prefill(params, batch, P + gen + n_prefix)
     tok = torch.argmax(logits, dim=-1)
     out = [tok]
     _sync(device)
@@ -109,7 +130,8 @@ def serve(cfg: ModelConfig, *, requests: int = 8, prompt_len: int = 48, gen: int
         B, P, G = requests, prompt_len, gen
         prompts = torch.randint(0, cfg.vocab_size, (B, P), device=dev,
                                 generator=torch.Generator(device=dev).manual_seed(seed + 1))
-        res = generate(model, params, prompts, G)
+        pe = make_patch_embeds(cfg, B, dev, seed + 2) if cfg.family == "vlm" else None
+        res = generate(model, params, prompts, G, pe)
         log(f"[serve] {B} requests x {G} tokens: prefill {res['prefill_s']:.3f}s, "
             f"decode {res['decode_s']:.3f}s ({dev.type})")
     finally:

@@ -1,12 +1,20 @@
 """GQA attention with causal/sliding-window masks and a decode KV cache.
 
-The port of ``src/repro/models/attention.py`` for the serving path. Prefill
-runs ``kernels.ops.flash_attention`` and decode ``kernels.ops.decode_attention``:
+The port of ``src/repro/models/attention.py``. Prefill runs
+``kernels.ops.flash_attention`` and decode ``kernels.ops.decode_attention``:
 the CUDA kernels on the card, their plain versions on the CPU. ``sdpa`` is
-the plain reference the tests hold the kernels' plain versions to.
+the plain reference the tests hold the kernels' plain versions to. On the
+CPU a prefill of ``BLOCKWISE_THRESHOLD`` or more positions runs
+``blockwise_sdpa``, as ``repro`` does without kernels, so that no (S, T)
+score matrix is built there; the card keeps the flash kernel.
 
-Not ported yet: the ring cache (``kv_positions``, gemma3) and
-``kv_override`` (cross-attention), which raise, and ``blockwise_sdpa``.
+The ring cache of gemma3's local layers keeps position p at slot p % W
+from the start (``transformer.prefill`` fills it so), so after the write of
+position ``pos`` its filled slots are exactly the keys in (pos - W, pos]:
+the decode kernel reads them as a cache of ``min(pos + 1, W)`` rows.
+``repro`` reaches the same key set by masking with the slots' positions.
+
+Not ported yet: ``kv_override`` (cross-attention, whisper), which raises.
 """
 
 from __future__ import annotations
@@ -75,6 +83,53 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = Tr
     return out.reshape(B, S, H, hd)
 
 
+# repro's threshold (``src/repro/models/attention.py``): at this many
+# positions the CPU prefill runs blockwise
+BLOCKWISE_THRESHOLD = 2048
+
+
+def blockwise_sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
+                   window: Optional[int] = None, q_offset=0, q_chunk: int = 512,
+                   k_chunk: int = 1024) -> torch.Tensor:
+    """Online-softmax attention over (q_chunk, k_chunk) blocks, in plain
+    PyTorch: O(S * hd) memory instead of O(S * T). Falls back to ``sdpa``
+    where the chunks do not divide S and T, as ``repro``'s does."""
+    B, S, H, hd = q.shape
+    T, K = k.shape[1], k.shape[2]
+    G = H // K
+    qc, kc = min(q_chunk, S), min(k_chunk, T)
+    if S % qc or T % kc:
+        return sdpa(q, k, v, causal=causal, window=window, q_offset=q_offset)
+    scale = hd ** -0.5
+    dev = q.device
+    outs = []
+    for qi in range(S // qc):
+        qg = q[:, qi * qc:(qi + 1) * qc].reshape(B, qc, K, G, hd)
+        rows = q_offset + qi * qc + torch.arange(qc, device=dev)[:, None]
+        m = torch.full((B, K, G, qc), float("-inf"), device=dev)
+        l = torch.zeros((B, K, G, qc), device=dev)
+        acc = torch.zeros((B, K, G, qc, hd), device=dev)
+        for ki in range(T // kc):
+            kcur, vcur = k[:, ki * kc:(ki + 1) * kc], v[:, ki * kc:(ki + 1) * kc]
+            s = torch.einsum("bskgd,btkd->bkgst", qg, kcur).float() * scale
+            cols = ki * kc + torch.arange(kc, device=dev)[None, :]
+            ok = torch.ones((qc, kc), dtype=torch.bool, device=dev)
+            if causal:
+                ok = ok & (cols <= rows)
+            if window is not None:
+                ok = ok & (cols > rows - window)
+            s = torch.where(ok, s, torch.full_like(s, _NEG))
+            m_new = torch.maximum(m, s.amax(-1))
+            p = torch.exp(s - m_new[..., None])
+            alpha = torch.exp(m - m_new)
+            l = alpha * l + p.sum(-1)
+            acc = alpha[..., None] * acc + torch.einsum("bkgst,btkd->bkgsd", p, vcur.float())
+            m = m_new
+        out = acc / torch.where(l == 0.0, torch.ones_like(l), l)[..., None]
+        outs.append(out.permute(0, 3, 1, 2, 4).reshape(B, qc, H, hd).to(q.dtype))
+    return torch.cat(outs, dim=1)
+
+
 def attention(
     p,
     x: torch.Tensor,
@@ -93,15 +148,21 @@ def attention(
     """Full attention sub-layer: qkv proj -> qk-norm -> rope -> attention -> out proj.
 
     Modes:
-      * train/prefill: ``cache is None`` -> attends within x (flash kernel);
+      * train/prefill: ``cache is None`` -> attends within x (flash kernel;
+        ``blockwise_sdpa`` on the CPU from ``BLOCKWISE_THRESHOLD`` positions);
         returns (out, KVCache(k, v)) so prefill can keep the cache.
       * decode: ``cache`` given, x is (B, 1, d); k/v are written into the
         cache at ``cache_pos`` (a 0-dim int tensor) IN PLACE, where the JAX
         version returns a new cache, and the decode kernel attends over
         ``[0, cache_pos + 1)``. The returned KVCache holds the same tensors.
+      * ring decode (gemma3's local layers): ``kv_positions`` (the ring's
+        slot positions) given; k/v are written at ``cache_write_pos``
+        (``cache_pos % W``, a 0-dim tensor) and the decode kernel reads the
+        W-slot ring as a cache of ``min(cache_pos + 1, W)`` rows, without a
+        window: with position p at slot p % W those rows are the keys in
+        (cache_pos - W, cache_pos], the set ``repro`` picks from
+        ``kv_positions``. Nothing is read back to the host.
     """
-    if kv_positions is not None or cache_write_pos is not None:
-        raise NotImplementedError("ring KV cache (kv_positions) is not ported yet")
     if kv_override is not None:
         raise NotImplementedError("cross-attention (kv_override) is not ported yet")
 
@@ -121,15 +182,23 @@ def attention(
         k = apply_rope(k, cos, sin)
 
     if cache is None:
-        out = ops.flash_attention(q, k, v, causal=causal, window=window)
+        if q.device.type == "cpu" and S >= BLOCKWISE_THRESHOLD:
+            out = blockwise_sdpa(q, k, v, causal=causal, window=window)
+        else:
+            out = ops.flash_attention(q, k, v, causal=causal, window=window)
         new_cache = KVCache(k, v)
     else:
         if S != 1:
             raise ValueError(f"decode takes one token per sequence, got S={S}")
-        idx = cache_pos.reshape(1).long()
+        ring = kv_positions is not None
+        idx = (cache_write_pos if ring else cache_pos).reshape(1).long()
         cache.k.index_copy_(1, idx, k)
         cache.v.index_copy_(1, idx, v)
-        kv_len = (cache_pos + 1).to(torch.int32)
+        if ring:
+            kv_len = torch.clamp(cache_pos + 1, max=cache.k.shape[1]).to(torch.int32)
+            window = None
+        else:
+            kv_len = (cache_pos + 1).to(torch.int32)
         out = ops.decode_attention(q, cache.k, cache.v, kv_len=kv_len, window=window)
         new_cache = cache
 

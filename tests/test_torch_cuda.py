@@ -11,7 +11,9 @@ Functions; the hybrid's short prompts on the card; serving's launches
 unchanged under ``inference_mode``; the kernels at the qwen3-moe-30b-a3b
 and granite-moe-1b-a400m shapes, one MoE layer at the published widths
 against the CPU with the routing shared, and the same layer under
-``torch.cuda.set_sync_debug_mode("error")``. Every test here
+``torch.cuda.set_sync_debug_mode("error")``; head dim 256 (gemma3-12b) in
+the forward and decode kernels, the backward's refusal of it, and one
+gemma3 block and the smoke internvl2 on the card against the CPU. Every test here
 carries the ``cuda`` marker and skips without a card. The file imports no JAX,
 so it runs where only PyTorch is installed:
 
@@ -402,3 +404,82 @@ def test_moe_layer_runs_without_host_sync(cuda_card, arch):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     assert torch.isfinite(out.float()).all() and torch.isfinite(x.grad.float()).all()
+
+
+# -- head dim 256 (gemma3-12b): forward and decode kernels only ----------------
+@ATTN_DTYPE
+@pytest.mark.parametrize("B,S,G,K,window", [
+    (2, 1, 1, 1, None), (2, 17, 2, 2, None), (2, 65, 2, 2, 64), (2, 300, 2, 8, None),
+    (2, 1000, 2, 8, 100), (1, 1536, 2, 8, 1024), (2, 129, 1, 8, None), (1, 300, 5, 2, 64)])
+def test_flash_kernel_hd256_on_card(cuda_card, B, S, G, K, window, dtype):
+    """hd 256 tiles (four boxes a row, P.V as two N = 128 halves): one row,
+    ragged q/kv tiles, G 1, 2 (gemma3) and 5, gemma3's window of 1024 over a
+    1536-token prompt, a window shorter than a tile."""
+    td, tol = DTYPES[dtype], TOL[dtype]
+    q, k, v = _card_inputs(cuda_card, [(B, S, G * K, 256), (B, S, K, 256), (B, S, K, 256)],
+                           td, 11)
+    torch.testing.assert_close(flash_attention_cuda(q, k, v, window=window),
+                               flash_attention_plain(q, k, v, window=window),
+                               atol=tol, rtol=tol)
+
+
+@ATTN_DTYPE
+@pytest.mark.parametrize("T,kv_len,G", [(1024, 1024, 2), (1024, 300, 2), (1024, 1, 2),
+                                        (1568, 1537, 2), (100, 37, 1), (544, 17, 5)])
+def test_decode_kernel_hd256_on_card(cuda_card, T, kv_len, G, dtype):
+    """hd 256 rows a whole warp wide, 16-row ring tiles: gemma3's local ring
+    (W = 1024) partly filled and full, its global cache, short caches."""
+    td, tol = DTYPES[dtype], TOL[dtype]
+    q, k, v = _card_inputs(cuda_card, [(8, 1, 8 * G, 256), (8, T, 8, 256), (8, T, 8, 256)],
+                           td, 12)
+    kl = torch.tensor(kv_len, dtype=torch.int32, device=cuda_card)
+    torch.testing.assert_close(decode_attention_cuda(q, k, v, kv_len=kl),
+                               decode_attention_plain(q, k, v, kv_len=kl),
+                               atol=tol, rtol=tol)
+
+
+def test_flash_backward_refuses_hd256(cuda_card):
+    """No backward kernel at hd 256 yet: under autograd the call raises before
+    its forward runs, and nothing falls back; without a gradient it runs."""
+    q, k = _card_inputs(cuda_card, [(1, 64, 2, 256), (1, 64, 1, 256)], torch.bfloat16, 13)
+    ops.reset_launches()
+    with pytest.raises(ValueError, match="gemma3 training"):
+        ops.flash_attention(q.clone().requires_grad_(), k, k)
+    assert ops.LAUNCHES == dict.fromkeys(ops.KERNELS, 0)
+    with pytest.raises(ValueError, match="head dim 256"):
+        flash_attention_bwd_cuda(q, k, k, q, torch.zeros((1, 2, 64), device=cuda_card), q)
+    with torch.no_grad():
+        ops.flash_attention(q.requires_grad_(), k, k)
+    assert ops.LAUNCHES["flash_attention"] == 1
+
+
+@pytest.mark.parametrize("arch,prompt", [("gemma3-12b", 40), ("internvl2-2b", 24)])
+def test_local_global_and_vlm_on_card_match_cpu(cuda_card, arch, prompt):
+    """One gemma3 block (2 local layers, window 32, and a global one) at head
+    dim 256 and the smoke internvl2 with its patch prefix at head dim 128,
+    float32: the card's kernels against the CPU's plain path on the same
+    weights, prefill and 4 decode steps (gemma3's 40-token prompt wraps the
+    ring), 1e-4 of max|logit| and equal greedy tokens. Every attention call
+    on the card went through a kernel."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke
+    from repro_torch.launch.serve import generate, make_patch_embeds
+    from repro_torch.models import build_model
+    from repro_torch.models.common import tree_map
+    cfg = get_smoke(arch)
+    cfg = dataclasses.replace(cfg, head_dim=256, n_layers=3) if cfg.local_global_ratio else \
+        dataclasses.replace(cfg, head_dim=128)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=cuda_card).manual_seed(0))
+    toks = torch.randint(0, cfg.vocab_size, (2, prompt), device=cuda_card,
+                         generator=torch.Generator(device=cuda_card).manual_seed(1))
+    pe = make_patch_embeds(cfg, 2, cuda_card, 2) if cfg.family == "vlm" else None
+    ops.reset_launches()
+    card = generate(model, params, toks, 5, pe)
+    assert ops.LAUNCHES["flash_attention"] == cfg.n_layers
+    assert ops.LAUNCHES["decode_attention"] == 4 * cfg.n_layers
+    host = generate(model, tree_map(lambda t: t.cpu(), params), toks.cpu(), 5,
+                    None if pe is None else pe.cpu())
+    assert _rel_err(card["last_logits"].cpu(), host["last_logits"]) < 1e-4
+    assert torch.equal(card["tokens"].cpu(), host["tokens"])

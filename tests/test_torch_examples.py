@@ -1,7 +1,8 @@
 """The port's examples run to their end on the CPU (``--device cpu``): the
 serve example's own checks (output shape, final cache position, as
-examples/serve_decode.py:58-59) on the dense and the MoE arch, and the train
-example on the train driver's default MoE arch."""
+examples/serve_decode.py:58-59) on the dense and the MoE arch, on gemma3
+(its 48-token prompt wraps the 32-slot ring) and on internvl2 (a patch
+prefix), and the train example on the train driver's default MoE arch."""
 
 import os
 import subprocess
@@ -18,6 +19,8 @@ ROOT = Path(__file__).resolve().parents[1]
 @pytest.mark.parametrize("script,args", [
     ("torch_serve_decode.py", []),
     ("torch_serve_decode.py", ["--arch", "qwen3-moe-30b-a3b"]),
+    ("torch_serve_decode.py", ["--arch", "gemma3-12b"]),
+    ("torch_serve_decode.py", ["--arch", "internvl2-2b"]),
     ("torch_train_lm.py", ["--steps", "6", "--batch", "2", "--seq", "32", "--ckpt-every", "3"]),
 ])
 def test_example_runs_on_cpu(script, args):

@@ -51,6 +51,7 @@ def _close(got, *wants, dtype):
         (2, 128, 4, 1, 64, 128, None),     # MQA
         (1, 128, 6, 2, 128, 128, 64),      # sliding window
         (1, 64, 2, 2, 16, 64, 16),
+        (1, 128, 4, 2, 256, 128, 64),      # gemma3: hd 256, G 2, a local window
     ],
 )
 def test_flash_attention_plain_matches_pallas(B, S, H, K, hd, T, window, dtype):
@@ -60,6 +61,37 @@ def test_flash_attention_plain_matches_pallas(B, S, H, K, hd, T, window, dtype):
     pallas = ops.flash_attention(q, k, v, causal=True, window=window, block_q=64, block_k=64)
     oracle = ref.flash_attention_ref(q, k, v, causal=True, window=window)
     _close(got, pallas, oracle, dtype=dtype)
+
+
+@jax_only
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kv_len", [37, 128])
+def test_decode_attention_plain_matches_pallas_hd256(kv_len, dtype):
+    """gemma3's head dim over a 128-slot ring, partly filled and full."""
+    from repro.kernels import ops, ref
+    B, H, K, hd, T = 2, 4, 2, 256, 128
+    (q, k, v), (tq, tk, tv) = _inputs(2, [(B, 1, H, hd), (B, T, K, hd), (B, T, K, hd)], dtype)
+    got = decode_attention_plain(tq, tk, tv, kv_len=torch.tensor(kv_len, dtype=torch.int32))
+    pallas = ops.decode_attention(q, k, v, kv_len=kv_len, block_k=64)
+    oracle = ref.decode_attention_ref(q, k, v, kv_len=kv_len)
+    _close(got, pallas, oracle, dtype=dtype)
+
+
+def test_head_dims_of_the_wrappers():
+    """hd 256 for the forward and decode kernels; the backward keeps 64, 112
+    and 128 and refuses 256 naming the ROADMAP item; on the CPU autograd
+    through the plain version takes any head dim."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    assert fa.HEAD_DIMS == da.HEAD_DIMS == (64, 112, 128, 256)
+    assert fa.BWD_HEAD_DIMS == (64, 112, 128)
+    for hd in fa.BWD_HEAD_DIMS:
+        fa.check_bwd_head_dim(hd)
+    with pytest.raises(ValueError, match="gemma3 training"):
+        fa.check_bwd_head_dim(256)
+    q = torch.randn(1, 8, 2, 256, requires_grad=True)
+    tops.flash_attention(q, q.detach(), q.detach()).sum().backward()
+    assert q.grad.shape == q.shape
 
 
 @jax_only
@@ -241,6 +273,8 @@ def test_plan_splits_main_shapes_and_no_kv_len():
     from repro_torch.kernels.decode_attention import plan_splits
     assert plan_splits(8, 32, 544, 132) == (272, 2)    # zamba2-7b: B*K = 256
     assert plan_splits(8, 8, 544, 132) == (80, 7)      # qwen3-14b: B*K = 64
+    assert plan_splits(8, 8, 1024, 132) == (128, 8)    # gemma3-12b's local ring
+    assert plan_splits(8, 8, 1568, 132) == (208, 8)    # gemma3-12b global, prompt 1536
     assert list(inspect.signature(plan_splits).parameters) == ["B", "K", "T", "sm_count"]
 
 

@@ -152,7 +152,7 @@ def test_sdpa_matches_repro_masks(window):
 
 def test_build_model_refuses_unported_families():
     from repro_torch.configs import get_smoke as port_smoke
-    for arch in ("gemma3-12b", "whisper-tiny", "xlstm-1.3b"):
+    for arch in ("whisper-tiny", "xlstm-1.3b"):
         with pytest.raises(NotImplementedError):
             build_model(port_smoke(arch))
 

@@ -10,6 +10,10 @@ smallest (its own is 32).
 
 Run:  PYTHONPATH=src python examples/torch_train_lm.py --device cpu
       PYTHONPATH=src python examples/torch_train_lm.py --arch phi4-mini-3.8b --steps 20
+      PYTHONPATH=src python examples/torch_train_lm.py --arch gemma3-12b --seq 48
+      PYTHONPATH=src python examples/torch_train_lm.py --arch zamba2-7b
+(gemma3's reduced window is 32 slots, so ``--seq 48`` trains across it;
+zamba2's reduced chunk is 32, so the default 128 is four chunks.)
 """
 
 import argparse

@@ -63,12 +63,24 @@
 //   keys) first. Shared memory: 194 KB at hd 112/128 (one CTA an SM), 81 KB
 //   at hd 64. nvcc -Xptxas -v: 168 registers at launch and no spill at hd
 //   112 and 128, 203 and no spill at hd 64.
+//   hd 256 (gemma3): dK and dV of 64 keys over all 256 columns would be 256
+//   accumulator registers a thread, past the consumers' 240, and the tiles
+//   above would take over 256 KB. So the kv tile is 64 keys, both consumer
+//   warpgroups take the same keys and each keeps dK's and dV's columns
+//   128 w .. 128 w + 127 (2 x 64 registers, as at hd 128); each computes
+//   S^T and dP^T for itself (2 of the 5 products twice, 1.4x the flops),
+//   the first stores dS^T, and each adds 128 of dQ's columns. The (Q, dO)
+//   ring has one stage, released once dV and dK have read it, so the next
+//   tile's loads overlap dQ; dV is waited for before dS^T is formed, so
+//   that P^T's registers are free. Shared memory 214 KB: K and V 64 KB, Q
+//   and dO 64 KB, dS^T twice 16 KB, the two dQ tiles 64 KB.
 //
 // float32 -- flash_bwd_kernel: FMAs from float32 tiles in shared memory
 //   (no tensor-core mode keeps float32 accuracy), 256 threads each with a
 //   4 x 4 block of S and dP; P (rounded to T) and dS through shared memory,
 //   dq by float32 atomicAdd; kv tiles of BKV = 64 keys. ~166 KB of shared
-//   memory at hd 128: one block an SM.
+//   memory at hd 128: one block an SM. At hd 256 the q tile is 32 rows
+//   (each thread 2 x 4 of S and dP), 214 KB.
 
 #include <cmath>
 #include <type_traits>
@@ -125,6 +137,10 @@ __global__ void bwd_prep_kernel(const T* __restrict__ o, const T* __restrict__ d
   }
 }
 
+// q rows a q tile of the float32 kernel holds: 64, and 32 at hd 256, where
+// 64-row q and dO tiles beside the 64-key K and V would not fit 227 KB
+__host__ __device__ constexpr int f32_q_tile(int hd) { return hd > 128 ? 32 : BQ; }
+
 template <typename T, int HD>
 __global__ void __launch_bounds__(NTHREADS)
 flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
@@ -132,17 +148,19 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
                  const float* __restrict__ D, float* __restrict__ dq_acc,
                  T* __restrict__ dk, T* __restrict__ dv, int S, int T_len, int H, int K,
                  int causal, int window, float scale) {
+  constexpr int QB = f32_q_tile(HD);
+  constexpr int RQ = QB / 16;       // q rows per thread
   constexpr int LD = HD + 1;        // padded row stride of the q, dO, k and v tiles
   constexpr int DPT = HD / 16;      // head-dim columns per thread
   extern __shared__ float smem[];
   float* ks = smem;                 // BKV x LD
   float* vs = ks + BKV * LD;        // BKV x LD
-  float* qs = vs + BKV * LD;        // BQ x LD
-  float* dos = qs + BQ * LD;        // BQ x LD
-  float* ps = dos + BQ * LD;        // BQ x LP
-  float* dss = ps + BQ * LP;        // BQ x LP
-  float* lse_s = dss + BQ * LP;     // BQ
-  float* d_s = lse_s + BQ;          // BQ
+  float* qs = vs + BKV * LD;        // QB x LD
+  float* dos = qs + QB * LD;        // QB x LD
+  float* ps = dos + QB * LD;        // QB x LP
+  float* dss = ps + QB * LP;        // QB x LP
+  float* lse_s = dss + QB * LP;     // QB
+  float* d_s = lse_s + QB;          // QB
 
   const int tid = threadIdx.x;
   const int tx = tid & 15;
@@ -174,8 +192,8 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   const int k_last = min(k0 + BKV, T_len) - 1;
   const int r_lo = causal ? k0 : 0;
   const int r_hi = window >= 0 ? min(S, k_last + window) : S;     // exclusive
-  const int qt_begin = r_lo / BQ;
-  const int qt_end = r_lo < r_hi ? (r_hi + BQ - 1) / BQ : qt_begin;
+  const int qt_begin = r_lo / QB;
+  const int qt_end = r_lo < r_hi ? (r_hi + QB - 1) / QB : qt_begin;
 
   for (int g = 0; g < G; ++g) {
     const int h = kh * G + g;
@@ -186,16 +204,16 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     const float* D_b = D + ((int64_t)b * H + h) * S;
 
     for (int qt = qt_begin; qt < qt_end; ++qt) {
-      const int q0 = qt * BQ;
+      const int q0 = qt * QB;
       __syncthreads();      // the previous tile's qs, dos, ps, dss consumed
-      for (int i = tid; i < BQ * HD; i += NTHREADS) {
+      for (int i = tid; i < QB * HD; i += NTHREADS) {
         const int r = i / HD, c = i % HD;
         const int row = q0 + r;
         const bool in = row < S;
         qs[r * LD + c] = in ? to_f(qb[(int64_t)row * q_row + c]) : 0.f;
         dos[r * LD + c] = in ? to_f(dob[(int64_t)row * q_row + c]) : 0.f;
       }
-      if (tid < BQ) {
+      if (tid < QB) {
         const int row = q0 + tid;
         lse_s[tid] = row < S ? lse_b[row] : INFINITY;
         d_s[tid] = row < S ? D_b[row] : 0.f;
@@ -203,23 +221,26 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
       __syncthreads();
 
       // S = Q K^T and dP = dO V^T: rows ty + 16 i, columns tx + 16 j
-      float sc[4][4], dp[4][4];
+      float sc[RQ][4], dp[RQ][4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < RQ; ++i)
 #pragma unroll
         for (int j = 0; j < 4; ++j) sc[i][j] = dp[i][j] = 0.f;
 #pragma unroll 4
       for (int d = 0; d < HD; ++d) {
-        float qv[4], dov[4], kv[4], vv[4];
+        float qv[RQ], dov[RQ], kv[4], vv[4];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
+        for (int i = 0; i < RQ; ++i) {
           qv[i] = qs[(ty + 16 * i) * LD + d];
           dov[i] = dos[(ty + 16 * i) * LD + d];
-          kv[i] = ks[(tx + 16 * i) * LD + d];
-          vv[i] = vs[(tx + 16 * i) * LD + d];
         }
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+        for (int j = 0; j < 4; ++j) {
+          kv[j] = ks[(tx + 16 * j) * LD + d];
+          vv[j] = vs[(tx + 16 * j) * LD + d];
+        }
+#pragma unroll
+        for (int i = 0; i < RQ; ++i)
 #pragma unroll
           for (int j = 0; j < 4; ++j) {
             sc[i][j] = fmaf(qv[i], kv[j], sc[i][j]);
@@ -227,7 +248,7 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
           }
       }
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
+      for (int i = 0; i < RQ; ++i) {
         const int r = ty + 16 * i;
         const int row = q0 + r;
 #pragma unroll
@@ -246,7 +267,7 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 
       // dV += P^T dO and dK += dS^T Q: key rows ty + 16 i, columns tx + 16 j
 #pragma unroll 2
-      for (int r = 0; r < BQ; ++r) {
+      for (int r = 0; r < QB; ++r) {
         float pv[4], dsv[4], dov[DPT], qv[DPT];
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
@@ -268,25 +289,25 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
       }
 
       // dQ += dS K * scale: q rows ty + 16 i, columns tx + 16 j, by atomics
-      float dqa[4][DPT];
+      float dqa[RQ][DPT];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < RQ; ++i)
 #pragma unroll
         for (int j = 0; j < DPT; ++j) dqa[i][j] = 0.f;
 #pragma unroll 2
       for (int c = 0; c < BKV; ++c) {
-        float dsv[4], kv[DPT];
+        float dsv[RQ], kv[DPT];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) dsv[i] = dss[(ty + 16 * i) * LP + c];
+        for (int i = 0; i < RQ; ++i) dsv[i] = dss[(ty + 16 * i) * LP + c];
 #pragma unroll
         for (int j = 0; j < DPT; ++j) kv[j] = ks[c * LD + tx + 16 * j];
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < RQ; ++i)
 #pragma unroll
           for (int j = 0; j < DPT; ++j) dqa[i][j] = fmaf(dsv[i], kv[j], dqa[i][j]);
       }
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
+      for (int i = 0; i < RQ; ++i) {
         const int row = q0 + ty + 16 * i;
         if (row >= S) continue;
 #pragma unroll
@@ -325,7 +346,15 @@ constexpr int WIDE_WG = 2;
 
 // Consumer warpgroups of the kernel for a head dim: at hd 64 one, as dQ's
 // columns are split between the warpgroups in whole 64-column boxes.
-constexpr int consumers(int hd) { return hd == 64 ? 1 : WIDE_WG; }
+__host__ __device__ constexpr int consumers(int hd) { return hd == 64 ? 1 : WIDE_WG; }
+// At hd 256 the two warpgroups take the same 64 keys and split dK's and dV's
+// columns (each keeps 2 x 64 accumulator registers, as at hd 128, where
+// owning all 256 columns would take 256), each computing S^T and dP^T for
+// itself; and the ring has one stage, so that K, V, Q, dO, dS^T and the dQ
+// tiles fit 227 KB.
+__host__ __device__ constexpr bool split_cols(int hd) { return hd > 128; }
+__host__ __device__ constexpr int kv_tile(int hd) { return split_cols(hd) ? 64 : 64 * consumers(hd); }
+__host__ __device__ constexpr int ring_stages(int hd) { return split_cols(hd) ? 1 : STAGES; }
 
 // Adds bytes to the barrier's current phase without arriving.
 __device__ __forceinline__ void mbar_add_tx(uint32_t bar, uint32_t bytes) {
@@ -425,7 +454,8 @@ __device__ __forceinline__ void wgmma_ss_tt(float (&d)[N / 2], uint64_t da, uint
 
 // One CTA per (kv tile of BKV = 64 NWG keys, b K + kh): a producer
 // warpgroup (one warp loads, the rest exit) and NWG consumer warpgroups,
-// warpgroup w owning keys 64 w .. 64 w + 63 of the tile. Shared memory,
+// warpgroup w owning keys 64 w .. 64 w + 63 of the tile (at hd 256, BKV 64:
+// warpgroup w owns columns 128 w .. 128 w + 127 of dK and dV). Shared memory,
 // every tile 128-byte swizzled in 64-column boxes (hd 112 zero-filled to
 // 128): K and V (BKV rows), a ring of STAGES (Q, dO) stages of BQ rows with
 // their lse (log2 units) and D rows, dS^T (BKV x BQ bf16) twice, by
@@ -443,28 +473,31 @@ flash_bwd_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q,
                        const float* __restrict__ lse, const float* __restrict__ D,
                        __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int B,
                        int S, int T_len, int H, int K, int causal, int window, float scale) {
-  constexpr int BKV = 64 * NWG;
+  constexpr bool SPLIT = split_cols(HD);
+  constexpr int BKV = kv_tile(HD);
+  constexpr int NST = ring_stages(HD);
   constexpr int NB = (HD + BOX - 1) / BOX;          // 64-column boxes a row
-  constexpr int HDP = NB * BOX;                     // padded head dim (dV's and dK's N)
+  constexpr int HDP = NB * BOX;                     // padded head dim
+  constexpr int NKV = SPLIT ? HDP / NWG : HDP;      // dV's and dK's columns a warpgroup holds
   constexpr int NQ = HDP / NWG;                     // dQ columns a warpgroup adds
   constexpr int KV_BYTES = NB * BKV * 128;          // K, and V
   constexpr int QT_BYTES = NB * BQ * 128;           // Q, and dO, of a stage
   constexpr int DS_BYTES = BKV * 128;               // dS^T: 64 q columns of bf16 a key
   constexpr int DQ_BYTES = (NQ / 32) * BQ * 128;    // a warpgroup's dQ, 32-column boxes
   extern __shared__ uint8_t smem_raw[];
-  __shared__ __align__(8) uint64_t bars[1 + 2 * STAGES];
-  __shared__ __align__(16) float s_lse[STAGES][BQ];    // lse in log2 units, +inf past S
-  __shared__ __align__(16) float s_d[STAGES][BQ];      // D, 0 past S
+  __shared__ __align__(8) uint64_t bars[1 + 2 * NST];
+  __shared__ __align__(16) float s_lse[NST][BQ];       // lse in log2 units, +inf past S
+  __shared__ __align__(16) float s_d[NST][BQ];         // D, 0 past S
 
   const uint32_t sk = (smem_u32(smem_raw) + 1023u) & ~1023u;   // swizzle atoms: 1024-aligned
   const uint32_t sv = sk + KV_BYTES;
   auto sq = [&](int s) { return sk + 2 * KV_BYTES + s * 2 * QT_BYTES; };
   auto sdo = [&](int s) { return sk + 2 * KV_BYTES + s * 2 * QT_BYTES + QT_BYTES; };
-  auto sds = [&](int p) { return sk + 2 * KV_BYTES + STAGES * 2 * QT_BYTES + p * DS_BYTES; };
-  const uint32_t sdq0 = sk + 2 * KV_BYTES + STAGES * 2 * QT_BYTES + 2 * DS_BYTES;
+  auto sds = [&](int p) { return sk + 2 * KV_BYTES + NST * 2 * QT_BYTES + p * DS_BYTES; };
+  const uint32_t sdq0 = sk + 2 * KV_BYTES + NST * 2 * QT_BYTES + 2 * DS_BYTES;
   const uint32_t bar_kv = smem_u32(&bars[0]);
   auto full = [&](int s) { return smem_u32(&bars[1 + s]); };
-  auto empty = [&](int s) { return smem_u32(&bars[1 + STAGES + s]); };
+  auto empty = [&](int s) { return smem_u32(&bars[1 + NST + s]); };
 
   // Grid order: the heaviest causal kv tiles (lowest keys) first.
   const int kt = blockIdx.x / (B * K);
@@ -485,7 +518,7 @@ flash_bwd_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q,
   const int lane = threadIdx.x % 32;
   if (threadIdx.x == 0) {
     mbar_init(bar_kv, 1);
-    for (int s = 0; s < STAGES; ++s) {
+    for (int s = 0; s < NST; ++s) {
       mbar_init(full(s), 32);                   // every producer lane
       mbar_init(empty(s), 4 * NWG);             // one arrival per consumer warp
     }
@@ -509,8 +542,8 @@ flash_bwd_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q,
       // the tile's bytes are posted and its loads issued before lse and D
       // are read, so the two latencies overlap; every lane then arrives
       for (int i = 0, h = kh * G, qt = qt_begin; i < iters; ++i) {
-        const int s = i % STAGES;
-        const int n = i / STAGES;
+        const int s = i % NST;
+        const int n = i / NST;
         const int q0 = qt * BQ;
         if (n > 0) mbar_wait(empty(s), (n - 1) & 1);
         if (lane == 0) {
@@ -544,21 +577,23 @@ flash_bwd_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q,
   const int wq = warp % 4;                   // warp within the warpgroup
   const int tid = threadIdx.x % 128;
   const int g = lane / 4, t = lane % 4;
-  const int kw0 = k0 + 64 * wg;              // this warpgroup's first key
+  const int kw0 = k0 + (SPLIT ? 0 : 64 * wg); // this warpgroup's first key
+  const uint32_t kv_rows = SPLIT ? 0 : wg * 8192;   // its keys' offset in a K or V box
+  const int col0 = SPLIT ? wg * NKV : 0;     // its first dK and dV column
   const int ra = 16 * wq + g;                // fragment row "a" in a 64-row block; "b" is ra + 8
   const uint32_t sdq = sdq0 + wg * DQ_BYTES;
   const float scale_log2 = scale * LOG2E;
 
-  float dv_acc[HDP / 2], dk_acc[HDP / 2];
+  float dv_acc[NKV / 2], dk_acc[NKV / 2];
 #pragma unroll
-  for (int i = 0; i < HDP / 2; ++i) dv_acc[i] = dk_acc[i] = 0.f;
+  for (int i = 0; i < NKV / 2; ++i) dv_acc[i] = dk_acc[i] = 0.f;
 
   mbar_wait(bar_kv, 0);
 
   for (int i = 0, h = kh * G, qt = qt_begin; i < iters; ++i) {
-    const int s = i % STAGES;
+    const int s = i % NST;
     const int q0 = qt * BQ;
-    mbar_wait(full(s), (i / STAGES) & 1);
+    mbar_wait(full(s), (i / NST) & 1);
 
     // S^T = K_w Q^T and dP^T = V_w dO^T, both operands K-major (the pad
     // k-steps of hd 112 skipped); dP^T stays in flight while P is formed
@@ -571,14 +606,14 @@ flash_bwd_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
     for (int kk = 0; kk < HD / 16; ++kk) {
       const int nb = kk / 4, kin = kk % 4;
-      wgmma_ss_n64(sc, sw128_desc(sk + nb * BKV * 128 + wg * 8192 + kin * 32, 16, 1024),
+      wgmma_ss_n64(sc, sw128_desc(sk + nb * BKV * 128 + kv_rows + kin * 32, 16, 1024),
                    sw128_desc(sq(s) + nb * BQ * 128 + kin * 32, 16, 1024), kk > 0);
     }
     wgmma_commit();
 #pragma unroll
     for (int kk = 0; kk < HD / 16; ++kk) {
       const int nb = kk / 4, kin = kk % 4;
-      wgmma_ss_n64(dp, sw128_desc(sv + nb * BKV * 128 + wg * 8192 + kin * 32, 16, 1024),
+      wgmma_ss_n64(dp, sw128_desc(sv + nb * BKV * 128 + kv_rows + kin * 32, 16, 1024),
                    sw128_desc(sdo(s) + nb * BQ * 128 + kin * 32, 16, 1024), kk > 0);
     }
     wgmma_commit();
@@ -622,14 +657,21 @@ flash_bwd_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q,
 
     // dV += P^T dO, dO MN-major (64-column blocks BQ*128 bytes apart, 8-row
     // groups 1024 apart, a k-step 2048 on), in flight while dS is formed
+    // (at hd 256 waited for, so that P^T's registers are free for dS^T)
     fence_regs(dv_acc);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < BQ / 16; ++kk)
-      wgmma_rs<HDP>(dv_acc, pp[4 * kk], pp[4 * kk + 1], pp[4 * kk + 2], pp[4 * kk + 3],
-                    sw128_desc(sdo(s) + kk * 2048, BQ * 128, 1024));
+      wgmma_rs<NKV>(dv_acc, pp[4 * kk], pp[4 * kk + 1], pp[4 * kk + 2], pp[4 * kk + 3],
+                    sw128_desc(sdo(s) + (col0 / BOX) * BQ * 128 + kk * 2048, BQ * 128, 1024));
     wgmma_commit();
-    wgmma_wait<1>();                            // dP^T done, dV may still run
+    if constexpr (SPLIT) {
+      wgmma_wait<0>();
+      fence_regs(dv_acc);
+      fence_u32(pp);
+    } else {
+      wgmma_wait<1>();                          // dP^T done, dV may still run
+    }
     fence_regs(dp);
 
     // dS^T = P^T (dP^T - D) in bf16: the A operand of dK; then to shared
@@ -644,11 +686,14 @@ flash_bwd_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q,
       dsp[(j / 2) * 4 + (j % 2) * 2 + 1] = pack_bf16(sc[4 * j + 2] * (dp[4 * j + 2] - d2.x),
                                                      sc[4 * j + 3] * (dp[4 * j + 3] - d2.y));
     }
-    const uint32_t sdsw = sds(i & 1) + wg * 64 * 128 + ra * 128 + 4 * t;
+    // (at hd 256 both warpgroups hold the same dS^T; the first stores it)
+    if (!SPLIT || wg == 0) {
+      const uint32_t sdsw = sds(i & 1) + kv_rows + ra * 128 + 4 * t;
 #pragma unroll
-    for (int j = 0; j < BQ / 8; ++j) {
-      st_shared(sdsw + ((j ^ g) << 4), dsp[(j / 2) * 4 + (j % 2) * 2]);
-      st_shared(sdsw + ((j ^ g) << 4) + 8 * 128, dsp[(j / 2) * 4 + (j % 2) * 2 + 1]);
+      for (int j = 0; j < BQ / 8; ++j) {
+        st_shared(sdsw + ((j ^ g) << 4), dsp[(j / 2) * 4 + (j % 2) * 2]);
+        st_shared(sdsw + ((j ^ g) << 4) + 8 * 128, dsp[(j / 2) * 4 + (j % 2) * 2 + 1]);
+      }
     }
 
     // dK += dS^T Q, Q MN-major as dO
@@ -656,9 +701,18 @@ flash_bwd_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q,
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < BQ / 16; ++kk)
-      wgmma_rs<HDP>(dk_acc, dsp[4 * kk], dsp[4 * kk + 1], dsp[4 * kk + 2], dsp[4 * kk + 3],
-                    sw128_desc(sq(s) + kk * 2048, BQ * 128, 1024));
+      wgmma_rs<NKV>(dk_acc, dsp[4 * kk], dsp[4 * kk + 1], dsp[4 * kk + 2], dsp[4 * kk + 3],
+                    sw128_desc(sq(s) + (col0 / BOX) * BQ * 128 + kk * 2048, BQ * 128, 1024));
     wgmma_commit();
+    if constexpr (SPLIT) {
+      // Q and dO of the one stage are read: the producer may refill it
+      // while dQ runs
+      wgmma_wait<0>();
+      fence_regs(dk_acc);
+      fence_u32(dsp);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty(s));
+    }
 
     // dQ = dS K over all BKV keys, once every warpgroup's dS^T is in shared
     // memory: this warpgroup's NQ columns, dS^T and K both MN-major. The
@@ -679,13 +733,15 @@ flash_bwd_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q,
                       kk > 0);
     wgmma_commit();
     wgmma_wait<0>();
-    fence_regs(dv_acc);
-    fence_regs(dk_acc);
     fence_regs(dq);
-    fence_u32(pp);
-    fence_u32(dsp);
-    __syncwarp();
-    if (lane == 0) mbar_arrive(empty(s));     // Q and dO of this stage may be refilled
+    if constexpr (!SPLIT) {
+      fence_regs(dv_acc);
+      fence_regs(dk_acc);
+      fence_u32(pp);
+      fence_u32(dsp);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty(s));   // Q and dO of this stage may be refilled
+    }
 
     // dQ * hd^-0.5 into shared memory (32-column boxes of 128-byte rows,
     // the 16-byte chunk c of q row r at c ^ (r % 8)), then one bulk reduction
@@ -717,8 +773,8 @@ flash_bwd_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q,
   __nv_bfloat16* dvb = dv + (int64_t)b * T_len * k_row + (int64_t)kh * HD;
   const int ja = kw0 + ra, jb = ja + 8;
 #pragma unroll
-  for (int n = 0; n < HDP / 8; ++n) {
-    const int col = 8 * n + 2 * t;
+  for (int n = 0; n < NKV / 8; ++n) {
+    const int col = col0 + 8 * n + 2 * t;
     if (col >= HD) continue;
     if (ja < T_len) {
       *reinterpret_cast<__nv_bfloat162*>(dkb + (int64_t)ja * k_row + col) =
@@ -741,11 +797,13 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* dout
                    int S, int T_len, int H, int K, int causal, int window, float scale,
                    cudaStream_t stream) {
   constexpr int NWG = consumers(HD);
-  constexpr int BKV = 64 * NWG;
+  constexpr int BKV = kv_tile(HD);
   constexpr int NB = (HD + BOX - 1) / BOX;
   constexpr int NQ = NB * BOX / NWG;
-  constexpr size_t smem = 1024 + (size_t)NB * 128 * (2 * BKV + 2 * STAGES * BQ) +
+  constexpr size_t smem = 1024 + (size_t)NB * 128 * (2 * BKV + 2 * ring_stages(HD) * BQ) +
                           2 * (size_t)BKV * 128 + (size_t)NWG * (NQ / 32) * BQ * 128;
+  static_assert(smem + sizeof(uint64_t) * (1 + 2 * ring_stages(HD)) +
+                    8 * ring_stages(HD) * BQ <= 232448, "shared memory over 227 KB");
   if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)dout | (uintptr_t)dq_acc) % 16)
     return cudaErrorInvalidValue;
   CUtensorMap tq, tk, tv, tdo, tdq;
@@ -791,9 +849,10 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o, c
                              window, scale, stream);
     if (err != cudaSuccess) return err;
   } else {
+    constexpr int QB = f32_q_tile(HD);
     dim3 grid((T_len + BKV - 1) / BKV, B * K);
-    const size_t smem = sizeof(float) * (size_t)(2 * BKV * (HD + 1) + 2 * BQ * (HD + 1) +
-                                                 2 * BQ * LP + 2 * BQ);
+    const size_t smem = sizeof(float) * (size_t)(2 * BKV * (HD + 1) + 2 * QB * (HD + 1) +
+                                                 2 * QB * LP + 2 * QB);
     auto kern = flash_bwd_kernel<T, HD>;
     err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
@@ -823,6 +882,8 @@ cudaError_t dispatch_hd(const void* q, const void* k, const void* v, const void*
     case 112: return launch<T, 112>(q, k, v, o, dout, lse, D, dq_acc, dq, dk, dv, B, S, T_len,
                                     H, K, causal, window, st);
     case 128: return launch<T, 128>(q, k, v, o, dout, lse, D, dq_acc, dq, dk, dv, B, S, T_len,
+                                    H, K, causal, window, st);
+    case 256: return launch<T, 256>(q, k, v, o, dout, lse, D, dq_acc, dq, dk, dv, B, S, T_len,
                                     H, K, causal, window, st);
     default: return cudaErrorInvalidValue;
   }

@@ -19,25 +19,25 @@ from typing import Optional
 
 import torch
 
+from ..precision import widen
 from . import build
 
 _NEG = -2.0e38
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (64, 112, 128, 256)
-# the backward kernel's; hd 256 (gemma3) waits for ROADMAP Queue 1's
-# "gemma3 training" item
-BWD_HEAD_DIMS = (64, 112, 128)
+BWD_HEAD_DIMS = HEAD_DIMS           # the backward kernel's (hd 256: gemma3)
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {"flash_attention_fwd": [_P] * 5 + [_I] * 9 + [_P]}
 _BWD_SIGNATURES = {"flash_attention_bwd": [_P] * 11 + [_I] * 9 + [_P]}
 
 
 def _scores(q, k, causal, window):
-    """Masked float32 scores (B, K, G, S, T) and the mask (S, T)."""
+    """Masked float32 (float64 for float64 inputs) scores (B, K, G, S, T) and
+    the mask (S, T)."""
     B, S, H, hd = q.shape
     T, K = k.shape[1], k.shape[2]
     qg = q.reshape(B, S, K, H // K, hd)
-    s = torch.einsum("bskgd,btkd->bkgst", qg, k).float() * (hd ** -0.5)
+    s = widen(torch.einsum("bskgd,btkd->bkgst", qg, k)) * (hd ** -0.5)
     rows = torch.arange(S, device=q.device)[:, None]
     cols = torch.arange(T, device=q.device)[None, :]
     ok = cols <= rows if causal else torch.ones((S, T), dtype=torch.bool, device=q.device)
@@ -62,7 +62,7 @@ def flash_attention_lse_plain(q: torch.Tensor, k: torch.Tensor, *, causal: bool 
     forward kernel writes for the backward (scores from q and k widened to
     float32, as the kernels' products accumulate)."""
     B, S, H, _ = q.shape
-    s, _ = _scores(q.float(), k.float(), causal, window)
+    s, _ = _scores(widen(q), widen(k), causal, window)
     return torch.logsumexp(s, dim=-1).reshape(B, H, S)
 
 
@@ -77,25 +77,18 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     B, S, H, hd = q.shape
     K = k.shape[2]
     G = H // K
-    s, ok = _scores(q.float(), k.float(), causal, window)
+    s, ok = _scores(widen(q), widen(k), causal, window)
     p = torch.where(ok, torch.exp(s - lse.reshape(B, K, G, S, 1)),
-                    torch.zeros((), device=q.device))
-    do = dout.float().reshape(B, S, K, G, hd)
-    D = (do * o.float().reshape(B, S, K, G, hd)).sum(-1).permute(0, 2, 3, 1)   # (B,K,G,S)
-    dv = torch.einsum("bkgst,bskgd->btkd", p.to(v.dtype).float(), do)
-    dp = torch.einsum("bskgd,btkd->bkgst", do, v.float())
+                    torch.zeros((), dtype=s.dtype, device=q.device))
+    do = widen(dout).reshape(B, S, K, G, hd)
+    D = (do * widen(o).reshape(B, S, K, G, hd)).sum(-1).permute(0, 2, 3, 1)   # (B,K,G,S)
+    dv = torch.einsum("bkgst,bskgd->btkd", widen(p.to(v.dtype)), do)
+    dp = torch.einsum("bskgd,btkd->bkgst", do, widen(v))
     ds = p * (dp - D[..., None])
     scale = hd ** -0.5
-    dk = torch.einsum("bkgst,bskgd->btkd", ds, q.float().reshape(B, S, K, G, hd)) * scale
-    dq = torch.einsum("bkgst,btkd->bskgd", ds, k.float()).reshape(B, S, H, hd) * scale
+    dk = torch.einsum("bkgst,bskgd->btkd", ds, widen(q).reshape(B, S, K, G, hd)) * scale
+    dq = torch.einsum("bkgst,btkd->bskgd", ds, widen(k)).reshape(B, S, H, hd) * scale
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
-
-
-def check_bwd_head_dim(hd: int) -> None:
-    """Raise for a head dim the backward kernel does not take."""
-    if hd not in BWD_HEAD_DIMS:
-        raise ValueError(f"flash_attention_bwd: head dim {hd} not in {BWD_HEAD_DIMS}; the "
-                         "hd-256 backward is ROADMAP Queue 1's \"gemma3 training\" item")
 
 
 def _check(q, k, v):
@@ -146,7 +139,6 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check(q, k, v)
     B, S, H, hd = q.shape
     T, K = k.shape[1], k.shape[2]
-    check_bwd_head_dim(hd)
     for name, t in (("o", o), ("dout", dout)):
         if t.shape != q.shape or t.dtype != q.dtype or not t.is_contiguous() or not t.is_cuda:
             raise ValueError(f"flash_attention_bwd_cuda: {name} must be a contiguous CUDA "

@@ -8,15 +8,14 @@ builds or launches or raises. Nothing falls back from one to the other.
 launches the kernel and nowhere else, so a run can show that its path went
 through every kernel (``reset_launches()`` before, read after).
 
-Training: where autograd needs a gradient of ``rmsnorm`` or
-``flash_attention`` on the card, the call goes through a
-``torch.autograd.Function`` whose forward launches the forward kernel (which
-also writes what the backward reads: each row's ``inv``, or its log-sum-exp)
-and whose backward launches the backward kernel (``rmsnorm_bwd``,
-``flash_attention_bwd``; at head dim 256 the backward kernel is missing, and
-the call raises ``ValueError`` before the forward runs). Without a gradient
-(``inference_mode``, serving) the forward kernels launch exactly as before.
-On the CPU autograd runs through the plain versions.
+Training: where autograd needs a gradient of ``rmsnorm``,
+``flash_attention`` or ``ssd_intra_chunk`` on the card, the call goes
+through a ``torch.autograd.Function`` whose forward launches the forward
+kernel (which also writes what the backward reads: each row's ``inv``, or
+its log-sum-exp) and whose backward launches the backward kernel
+(``rmsnorm_bwd``, ``flash_attention_bwd``, ``ssd_intra_chunk_bwd``).
+Without a gradient (``inference_mode``, serving) the forward kernels launch
+exactly as before. On the CPU autograd runs through the plain versions.
 """
 
 from __future__ import annotations
@@ -27,16 +26,15 @@ import torch
 
 from .decode_attention import decode_attention_cuda, decode_attention_plain
 from .flash_attention import (
-    check_bwd_head_dim,
     flash_attention_bwd_cuda,
     flash_attention_cuda,
     flash_attention_plain,
 )
 from .rmsnorm import rmsnorm_bwd_triton, rmsnorm_plain, rmsnorm_triton
-from .ssd_scan import ssd_intra_chunk_cuda, ssd_intra_chunk_plain
+from .ssd_scan import ssd_intra_chunk_bwd_cuda, ssd_intra_chunk_cuda, ssd_intra_chunk_plain
 
 KERNELS = ("rmsnorm", "flash_attention", "decode_attention", "ssd_intra_chunk",
-           "rmsnorm_bwd", "flash_attention_bwd")
+           "rmsnorm_bwd", "flash_attention_bwd", "ssd_intra_chunk_bwd")
 LAUNCHES: dict[str, int] = dict.fromkeys(KERNELS, 0)
 
 
@@ -95,6 +93,25 @@ class _FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None, None
 
 
+class _SSDIntraChunk(torch.autograd.Function):
+    """The CUDA forward; the CUDA backward (an output autograd leaves
+    without a gradient, ``tot`` in the model, comes in as zeros)."""
+
+    @staticmethod
+    def forward(ctx, la, C, B_in, x):
+        out = ssd_intra_chunk_cuda(la, C, B_in, x)
+        LAUNCHES["ssd_intra_chunk"] += 1
+        ctx.save_for_backward(la, C, B_in, x)
+        return out
+
+    @staticmethod
+    def backward(ctx, dy, dstates, dtot):
+        grads = ssd_intra_chunk_bwd_cuda(*ctx.saved_tensors, dy.contiguous(),
+                                         dstates.contiguous(), dtot.contiguous())
+        LAUNCHES["ssd_intra_chunk_bwd"] += 1
+        return grads
+
+
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-5) -> torch.Tensor:
     """y = x * rsqrt(mean(x^2, -1) + eps) * scale; x: (..., d), scale: (d,)."""
     if not _on_cuda(x, "rmsnorm"):
@@ -112,7 +129,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if not _on_cuda(q, "flash_attention"):
         return flash_attention_plain(q, k, v, causal=causal, window=window)
     if _wants_grad(q, k, v):
-        check_bwd_head_dim(q.shape[-1])           # before the forward, not in the backward
         return _FlashAttention.apply(q, k, v, causal, window)
     out = flash_attention_cuda(q, k, v, causal=causal, window=window)
     LAUNCHES["flash_attention"] += 1
@@ -137,6 +153,8 @@ def ssd_intra_chunk(la: torch.Tensor, C: torch.Tensor, B_in: torch.Tensor, x: to
     (y (B,nc,Q,H,P), states (B,nc,H,P,N), tot (B,nc,H)), float32."""
     if not _on_cuda(la, "ssd_intra_chunk"):
         return ssd_intra_chunk_plain(la, C, B_in, x)
+    if _wants_grad(la, C, B_in, x):
+        return _SSDIntraChunk.apply(la, C, B_in, x)
     out = ssd_intra_chunk_cuda(la, C, B_in, x)
     LAUNCHES["ssd_intra_chunk"] += 1
     return out

@@ -22,32 +22,39 @@ math): ``rmsnorm_bwd_triton``. With ``return_inv`` the forward also writes
 each row's float32 ``inv = rsqrt(mean x^2 + eps)``; the backward reads x, g
 and inv once and writes dx = inv * (g*s - x * mean(g*s*x) * inv^2) in x's
 dtype, bound by bytes like the forward (x, g and dx: 3 * rows * d * itemsize).
-dscale = sum over rows of g * x * inv: each program walks a strided set of
-row blocks, keeps its column sums in registers and writes one float32 row
-of partials; a second small Triton pass sums those rows per column and
-casts to scale's dtype. A few hundred programs keep the partials to a few MB.
+dscale = sum over rows of g * x * inv: each of ``bwd_plan``'s programs (two
+an SM) walks a strided set of row blocks, keeps its column sums in
+registers and writes one float32 row of partials; a second Triton pass of
+32-column programs sums those rows per column and casts to scale's dtype.
+Four programs an SM and 128-column sum programs (eight at granite's d
+1024) spent a third of the time in that pass; one launch, whose last
+program finishes the column sums, was timed in two forms and not kept
+(``tools/time_rmsnorm_bwd.py``, ``PERF.md`` §6).
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..precision import widen
+
 
 def rmsnorm_plain(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-5) -> torch.Tensor:
-    """x: (..., d); scale: (d,). float32 statistics, output in x's dtype."""
-    xf = x.float()
+    """x: (..., d); scale: (d,). float32 statistics (float64 for float64 x),
+    output in x's dtype."""
+    xf = widen(x)
     y = xf * torch.rsqrt(xf.square().mean(-1, keepdim=True) + eps)
-    return (y * scale.float()).to(x.dtype)
+    return (y * scale.to(xf.dtype)).to(x.dtype)
 
 
 def rmsnorm_bwd_plain(x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor, *,
                       eps: float = 1e-5):
     """``_rms_bwd`` of ``repro``'s ``rmsnorm_bf16bwd``: (dx in x's dtype,
     dscale in scale's dtype) for the output gradient ``g``."""
-    xf, gf = x.float(), g.float()
+    xf, gf = widen(x), widen(g)
     var = xf.square().mean(-1, keepdim=True) + eps
     inv = torch.rsqrt(var)
-    gs = gf * scale.float()
+    gs = gf * scale.to(xf.dtype)
     proj = (gs * xf).mean(-1, keepdim=True) / var
     dx = (inv * (gs - xf * proj)).to(x.dtype)
     dscale = (gf * xf * inv).reshape(-1, x.shape[-1]).sum(0)
@@ -140,8 +147,9 @@ def _check(x, scale, what):
         raise ValueError(f"{what}: unsupported dtype {x.dtype}")
 
 
-def _blocks(d: int, triton):
-    BLOCK_D = triton.next_power_of_2(d)
+def _blocks(d: int):
+    """Rows and (power-of-two) columns of a program's block, and its warps."""
+    BLOCK_D = 1 << max(0, (d - 1).bit_length())
     BLOCK_R = max(1, min(64, 4096 // BLOCK_D))
     return BLOCK_R, BLOCK_D, 8 if BLOCK_D * BLOCK_R >= 4096 else 4
 
@@ -159,7 +167,7 @@ def rmsnorm_triton(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-5,
     # without return_inv the kernel never touches inv_ptr (WRITE_INV is a constexpr)
     inv = torch.empty(x.shape[:-1], dtype=torch.float32, device=x.device) if return_inv else out
     if rows:
-        BLOCK_R, BLOCK_D, num_warps = _blocks(d, triton)
+        BLOCK_R, BLOCK_D, num_warps = _blocks(d)
         grid = (triton.cdiv(rows, BLOCK_R),)
         kernel[grid](x, scale, out, inv, rows, d, eps,
                      BLOCK_R=BLOCK_R, BLOCK_D=BLOCK_D, WRITE_INV=return_inv,
@@ -167,10 +175,23 @@ def rmsnorm_triton(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-5,
     return (out, inv) if return_inv else out
 
 
+def bwd_plan(rows: int, d: int, n_sm: int) -> dict:
+    """The backward's launch: row block and column width (as the forward's),
+    programs (each writes one float32 row of column partials; two an SM, no
+    more than there are row blocks) and the column width of the pass that
+    sums the partials."""
+    BLOCK_R, BLOCK_D, num_warps = _blocks(d)
+    nprog = max(1, min(-(-rows // BLOCK_R), 2 * n_sm))
+    return {"BLOCK_R": BLOCK_R, "BLOCK_D": BLOCK_D, "num_warps": num_warps, "nprog": nprog,
+            "colsum_block": 32}
+
+
 def rmsnorm_bwd_triton(x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor,
-                       inv: torch.Tensor):
+                       inv: torch.Tensor, *, plan: dict | None = None):
     """Launch the backward: (dx in x's dtype, dscale in scale's dtype) for the
-    output gradient ``g`` and the forward's ``inv``. All contiguous CUDA."""
+    output gradient ``g`` and the forward's ``inv``. All contiguous CUDA.
+    ``plan`` (``bwd_plan``'s keys) overrides the launch, for timing
+    variants."""
     _check(x, scale, "rmsnorm_bwd_triton")
     if g.shape != x.shape or g.dtype != x.dtype or not g.is_contiguous() or not g.is_cuda:
         raise ValueError("rmsnorm_bwd_triton: g must be a contiguous CUDA tensor like x")
@@ -181,12 +202,11 @@ def rmsnorm_bwd_triton(x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor,
     rows = x.numel() // d
     dx = torch.empty_like(x)
     dscale = torch.empty_like(scale)
-    BLOCK_R, BLOCK_D, num_warps = _blocks(d, triton)
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    nprog = max(1, min(triton.cdiv(rows, BLOCK_R), 4 * sms))
+    p = plan or bwd_plan(rows, d, sms)
+    nprog, bc = p["nprog"], p["colsum_block"]
     part = torch.empty((nprog, d), dtype=torch.float32, device=x.device)
     bwd[(nprog,)](x, scale, g, inv, dx, part, rows, d,
-                  BLOCK_R=BLOCK_R, BLOCK_D=BLOCK_D, num_warps=num_warps)
-    colsum[(triton.cdiv(d, 128),)](part, dscale, nprog, d, BLOCK_N=32, BLOCK_C=128,
-                                   num_warps=4)
+                  BLOCK_R=p["BLOCK_R"], BLOCK_D=p["BLOCK_D"], num_warps=p["num_warps"])
+    colsum[(triton.cdiv(d, bc),)](part, dscale, nprog, d, BLOCK_N=32, BLOCK_C=bc, num_warps=4)
     return dx, dscale

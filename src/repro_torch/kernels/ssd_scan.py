@@ -9,6 +9,12 @@ for float32 accuracy), and its header says how. It
 reads la and x in their natural layouts (the TPU wrapper transposed both)
 and computes C . B^T once for a group of heads. The inter-chunk scan stays
 in the model code (``models/mamba2.ssd_chunked``).
+
+Backward (training; the TPU kernel has none, ``repro`` differentiates
+through it): ``csrc/ssd_intra_chunk_bwd.cu``, launched by
+``ssd_intra_chunk_bwd_cuda``, whose plain version is
+``ssd_intra_chunk_bwd_plain``: autograd through ``ssd_intra_chunk_plain``.
+Its header says what bounds it and how it is built.
 """
 
 from __future__ import annotations
@@ -18,11 +24,14 @@ import math
 
 import torch
 
+from ..precision import widen
 from . import build
 
 MAX_HEADS_PER_BLOCK = 16
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {"ssd_intra_chunk_fwd": [_P] * 7 + [_I] * 6 + [_P]}
+_BWD_SIGNATURES = {"ssd_intra_chunk_bwd": [_P] * 13 + [_I] * 6 + [_P]}
+BWD_MAX_Q, BWD_MAX_N = 128, 64      # the backward kernel's limits
 
 
 def ssd_intra_chunk_plain(la: torch.Tensor, C: torch.Tensor, B_in: torch.Tensor,
@@ -32,14 +41,16 @@ def ssd_intra_chunk_plain(la: torch.Tensor, C: torch.Tensor, B_in: torch.Tensor,
     Returns (y (B,nc,Q,H,P), states (B,nc,H,P,N), tot (B,nc,H)) in float32,
     or in float64 where the inputs are float64 (an oracle for the kernel).
     """
-    la, C, B_in, x = (t.to(torch.promote_types(t.dtype, torch.float32))
-                      for t in (la, C, B_in, x))
+    la, C, B_in, x = (widen(t) for t in (la, C, B_in, x))
     Q = la.shape[2]
     L = torch.cumsum(la, dim=2)
     CB = torch.einsum("bcqn,bcsn->bcqs", C, B_in)
     seg = L[:, :, :, None, :] - L[:, :, None, :, :]              # (B,nc,Q,Q,H)
     tri = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=la.device))
-    M = torch.where(tri[None, None, :, :, None], torch.exp(seg), 0.0) * CB[..., None]
+    # masked before the exp: above the diagonal seg > 0 may overflow, and the
+    # gradient of where(mask, exp(seg), 0) would then be 0 * inf
+    seg = torch.where(tri[None, None, :, :, None], seg, float("-inf"))
+    M = torch.exp(seg) * CB[..., None]
     y = torch.einsum("bcqsh,bcshp->bcqhp", M, x)
     tot = L[:, :, -1, :]
     w_end = torch.exp(tot[:, :, None, :] - L)
@@ -47,14 +58,28 @@ def ssd_intra_chunk_plain(la: torch.Tensor, C: torch.Tensor, B_in: torch.Tensor,
     return y, st, tot
 
 
-def heads_per_block(BC: int, H: int, n_sm: int) -> int:
+def ssd_intra_chunk_bwd_plain(la: torch.Tensor, C: torch.Tensor, B_in: torch.Tensor,
+                              x: torch.Tensor, dy: torch.Tensor, dstates: torch.Tensor,
+                              dtot: torch.Tensor):
+    """Autograd through ``ssd_intra_chunk_plain``: the gradients (dla, dC, dB,
+    dx) of <y, dy> + <states, dstates> + <tot, dtot>, in float32, or float64
+    where the inputs are float64."""
+    with torch.enable_grad():
+        ins = [widen(t.detach()).requires_grad_() for t in (la, C, B_in, x)]
+        outs = ssd_intra_chunk_plain(*ins)
+        return torch.autograd.grad(outs, ins, [g.to(o.dtype) for g, o in
+                                               zip((dy, dstates, dtot), outs)])
+
+
+def heads_per_block(BC: int, H: int, n_sm: int, max_heads: int = MAX_HEADS_PER_BLOCK) -> int:
     """Heads a block serves: fewest waves of one-block-per-SM blocks over the
     card, each block paying for one C . B^T (about one head's work) besides
-    its heads."""
+    its heads. The forward takes at most ``MAX_HEADS_PER_BLOCK``; the
+    backward, which keeps no per-head state in shared memory, any number."""
     def cost(hg):
         waves = math.ceil(BC * math.ceil(H / hg) / n_sm)
         return waves * (hg + 1)
-    return min(range(1, min(H, MAX_HEADS_PER_BLOCK) + 1), key=cost)
+    return min(range(1, min(H, max_heads) + 1), key=cost)
 
 
 def check_inputs(la: torch.Tensor, C: torch.Tensor, B_in: torch.Tensor, x: torch.Tensor):
@@ -101,3 +126,41 @@ def ssd_intra_chunk_cuda(la: torch.Tensor, C: torch.Tensor, B_in: torch.Tensor,
             torch.cuda.current_stream(x.device).cuda_stream)
     build.check(lib, err, "ssd_intra_chunk_fwd")
     return y, st, tot
+
+
+def ssd_intra_chunk_bwd_cuda(la: torch.Tensor, C: torch.Tensor, B_in: torch.Tensor,
+                             x: torch.Tensor, dy: torch.Tensor, dstates: torch.Tensor,
+                             dtot: torch.Tensor):
+    """Launch the backward kernels on PyTorch's current stream: (dla, dC, dB,
+    dx) for the output gradients ``dy`` (like x), ``dstates`` (B,nc,H,P,N)
+    and ``dtot`` (B,nc,H). Takes CUDA tensors that pass ``check_inputs``,
+    Q <= 128 and N <= 64."""
+    ts = (la, C, B_in, x, dy, dstates, dtot)
+    if not all(t.is_cuda for t in ts):
+        raise ValueError("ssd_intra_chunk_bwd_cuda takes CUDA tensors")
+    Bs, nc, Q, H, N, P = check_inputs(la, C, B_in, x)
+    if Q > BWD_MAX_Q or N > BWD_MAX_N:
+        raise ValueError(f"ssd_intra_chunk_bwd_cuda takes Q <= {BWD_MAX_Q} and N <= "
+                         f"{BWD_MAX_N}; got Q {Q}, N {N}")
+    for name, t, shape in (("dy", dy, x.shape), ("dstates", dstates, (Bs, nc, H, P, N)),
+                           ("dtot", dtot, (Bs, nc, H))):
+        if tuple(t.shape) != tuple(shape) or t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"ssd_intra_chunk_bwd_cuda: {name} must be contiguous float32 "
+                             f"{tuple(shape)}, got {tuple(t.shape)} {t.dtype}")
+    BC = Bs * nc
+    lib = build.library("ssd_intra_chunk_bwd", _BWD_SIGNATURES)
+    n_sm = torch.cuda.get_device_properties(x.device).multi_processor_count
+    hg = heads_per_block(BC, H, n_sm, max_heads=H)
+    ngrp = math.ceil(H / hg)
+    dla, dC, dB, dx = (torch.empty_like(t) for t in (la, C, B_in, x))
+    f32 = dict(dtype=torch.float32, device=x.device)
+    part_dcb = torch.empty((BC, ngrp, Q, Q), **f32)
+    part_dbh = torch.empty((BC, ngrp, Q, N), **f32)
+    with torch.cuda.device(x.device):
+        err = lib.ssd_intra_chunk_bwd(
+            la.data_ptr(), C.data_ptr(), B_in.data_ptr(), x.data_ptr(), dy.data_ptr(),
+            dstates.data_ptr(), dtot.data_ptr(), dla.data_ptr(), dx.data_ptr(), dC.data_ptr(),
+            dB.data_ptr(), part_dcb.data_ptr(), part_dbh.data_ptr(), BC, Q, H, N, P, hg,
+            torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(lib, err, "ssd_intra_chunk_bwd")
+    return dla, dC, dB, dx

@@ -8,10 +8,12 @@ the hybrid, ``--arch qwen3-moe-30b-a3b`` for MoE, ``--arch gemma3-12b
 random weights from ``--seed``), warms up,
 then profiles two windows separately: one batched prefill, and the greedy
 decode steps that follow it. Training (``--train``): phi4-mini-3.8b by
-default at full width with ``--layers`` (default 8) layers, bf16 params and
-fp32 AdamW state, ``--batch`` x ``--seq`` tokens (4 x 2048), remat "full";
-one warm-up step, then one profiled train step (``--arch
-granite-moe-1b-a400m --layers 24`` for MoE at full depth). For each window
+default at full width with ``--layers`` layers (by default as
+``chip_smoke.py`` trains it: phi4-mini 8, granite-moe-1b-a400m 24,
+gemma3-12b 6, one block of 5 local and 1 global, zamba2-7b 14, two groups
+and a tail of 2), bf16 params and fp32 AdamW state, ``--batch`` x ``--seq``
+tokens (4 x 2048), remat "full"; one warm-up step, then one profiled train
+step. For each window
 it prints one JSON line: host-clock wall time without and with the profiler,
 device busy time (the union of kernel intervals) and idle share, and device
 time by category (the port's kernels, matrix products, sorts and top-k,
@@ -24,7 +26,7 @@ prefill and one decode step, or the train step's forward and recompute).
 Needs a CUDA device.
 
 Run:  PYTHONPATH=src python -m repro_torch.launch.profile [--arch zamba2-7b] [--layers N]
-      PYTHONPATH=src python -m repro_torch.launch.profile --train [--layers 8]
+      PYTHONPATH=src python -m repro_torch.launch.profile --train [--arch gemma3-12b] [--layers N]
 """
 
 from __future__ import annotations
@@ -47,6 +49,7 @@ CATEGORIES = (
     ("flash_attention", re.compile(r"flash_fwd_kernel")),
     ("flash_attention_bwd", re.compile(r"flash_bwd_kernel|bwd_prep_kernel|cast_kernel")),
     ("rmsnorm_bwd", re.compile(r"rmsnorm_bwd_kernel|colsum_kernel")),
+    ("ssd_intra_chunk_bwd", re.compile(r"ssd_bwd_(heads|cb)")),
     ("decode_attention", re.compile(r"decode_(split|combine)_kernel")),
     ("rmsnorm", re.compile(r"rmsnorm_kernel")),
     ("ssd_intra_chunk", re.compile(r"ssd_intra_chunk_kernel")),
@@ -116,6 +119,10 @@ def profile_window(fn, device: torch.device, top: int) -> dict:
         "top_kernels_ms": [[n[:120], v / 1e3] for n, v in top_names],
     }
 
+
+# --train's default depth a model
+TRAIN_LAYERS = {"phi4-mini-3.8b": 8, "granite-moe-1b-a400m": 24, "gemma3-12b": 6,
+                "zamba2-7b": 14}
 
 # functions of models/moe.py that moe_ffn calls, the ones that call no other first
 MOE_FUNCTIONS = ("route", "dispatch_plan", "load_balance_aux", "experts")
@@ -197,7 +204,7 @@ def main(argv=None) -> dict:
     ap.add_argument("--arch", default=None,
                     help="qwen3-14b for serving, phi4-mini-3.8b with --train")
     ap.add_argument("--layers", type=int, default=None,
-                    help="cut depth (default: all; 8 with --train)")
+                    help="cut depth (default: all; with --train, TRAIN_LAYERS' or 8)")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--prompt-len", type=int, default=512)
     ap.add_argument("--gen", type=int, default=32)
@@ -211,7 +218,7 @@ def main(argv=None) -> dict:
     dev = resolve_device("cuda")
     if args.train:
         args.arch = args.arch or "phi4-mini-3.8b"
-        args.layers = args.layers or 8
+        args.layers = args.layers or TRAIN_LAYERS.get(args.arch, 8)
         return profile_train(args, dev)
     cfg = get_config(args.arch or "qwen3-14b")
     if args.layers:

@@ -13,6 +13,8 @@ attention layer runs its forward and backward kernels (``kernels.ops``).
 
 Run:  PYTHONPATH=src python -m repro_torch.launch.train   (granite-moe-1b-a400m)
       PYTHONPATH=src python -m repro_torch.launch.train --arch phi4-mini-3.8b
+      PYTHONPATH=src python -m repro_torch.launch.train --arch gemma3-12b
+      PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-7b
       (add ``--device cpu`` to run the plain path on the CPU)
 """
 
@@ -140,7 +142,9 @@ def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(
         description="Train on the card through the provisioned burst tier. The default "
                     "--arch is repro's, granite-moe-1b-a400m (MoE); qwen3-moe-30b-a3b "
-                    "(MoE), phi4-mini-3.8b, qwen3-14b and qwen2.5-32b (dense) also train.")
+                    "(MoE), phi4-mini-3.8b, qwen3-14b and qwen2.5-32b (dense), gemma3-12b "
+                    "(local/global attention, head dim 256) and zamba2-7b (Mamba2 hybrid) "
+                    "also train.")
     ap.add_argument("--arch", default="granite-moe-1b-a400m")
     ap.add_argument("--smoke", action="store_true", default=True)
     ap.add_argument("--full", dest="smoke", action="store_false")

@@ -25,6 +25,7 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..kernels import ops
+from ..precision import compute_dtype
 from .layers import apply_rope, dense, dense_init, head_rmsnorm, rope_tables
 
 _NEG = -2.0e38
@@ -177,7 +178,7 @@ def attention(
         k = head_rmsnorm(p["k_norm"], k, cfg.norm_eps)
 
     if theta > 0:
-        cos, sin = rope_tables(positions, hd, theta)
+        cos, sin = rope_tables(positions, hd, theta, dtype=compute_dtype(q.dtype))
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
 

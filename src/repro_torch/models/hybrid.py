@@ -2,12 +2,15 @@
 weight-shared attention+MLP block applied after every ``shared_attn_every``
 mamba layers, each invocation site with its own KV cache.
 
-The port of ``src/repro/models/hybrid.py`` for the serving path (``init``,
-``prefill``, ``decode_step``, ``init_cache``); the training loss is a later
-slice. Params keep ``repro``'s key paths: ``mamba_groups`` leaves have
-leading dims (ng, gs), ``mamba_tail`` leaves (tail,); the ``lax.scan``s are
-loops over those dims. Every norm goes through ``layers.norm`` (the rmsnorm
-kernel on the card). Decode updates the cache in place.
+The port of ``src/repro/models/hybrid.py``: ``init``, ``loss_fn``
+(training), ``prefill``, ``decode_step``, ``init_cache``. Params keep
+``repro``'s key paths: ``mamba_groups`` leaves have leading dims (ng, gs),
+``mamba_tail`` leaves (tail,); the ``lax.scan``s are loops over those dims.
+Every norm goes through ``layers.norm`` (the rmsnorm kernel on the card).
+Training wraps each mamba layer in ``remat_wrap`` and leaves the shared
+block unwrapped, as ``repro``'s ``_forward`` does; on the card autograd runs
+the rmsnorm, flash attention (hd 112) and SSD intra-chunk backward kernels.
+Decode updates the cache in place.
 """
 
 from __future__ import annotations
@@ -18,8 +21,9 @@ import torch
 
 from ..configs.base import ModelConfig
 from .attention import KVCache, attention, attn_init
-from .common import Model, stack_init, tree_map
+from .common import Model, remat_wrap, stack_init, tree_map
 from .layers import (
+    cross_entropy_loss,
     dtype_of,
     embed,
     embed_init,
@@ -50,6 +54,11 @@ def _mamba_layer(lp, x, cfg: ModelConfig, cache: MambaCache | None = None):
     h, state = mamba_forward(lp["mamba"], norm(lp["norm"], x, cfg.norm_eps), cfg,
                              cache=cache)
     return x + h, state
+
+
+def _mamba_residual(lp, x, cfg: ModelConfig):
+    """A mamba layer for training: its output only (the state is dropped)."""
+    return _mamba_layer(lp, x, cfg)[0]
 
 
 def _shared_apply(sp, x, cfg: ModelConfig, *, positions, cache=None, cache_pos=None):
@@ -180,9 +189,29 @@ def init_cache(cfg: ModelConfig, B: int, S_max: int, device=None):
     return cache
 
 
+def _forward(params, cfg: ModelConfig, x, positions, *, remat=None):
+    """``repro``'s ``_forward`` for training: each group's mamba layers (each
+    under ``remat_wrap``), then the shared block; then the tail's layers."""
+    layer = remat_wrap(functools.partial(_mamba_residual, cfg=cfg), remat)
+    ng, gs, tail = _groups(cfg)
+    for g in range(ng):
+        for i in range(gs):
+            x = layer(tree_map(lambda a: a[g, i], params["mamba_groups"]), x)
+        x, _ = _shared_apply(params["shared"], x, cfg, positions=positions)
+    for i in range(tail):
+        x = layer(tree_map(lambda a: a[i], params["mamba_tail"]), x)
+    return x
+
+
 def loss_fn(params, batch, cfg: ModelConfig, *, remat=None):
-    raise NotImplementedError("hybrid (zamba2) training is not ported yet: it needs a "
-                              "backward kernel for ssd_intra_chunk and blockwise_sdpa")
+    """Mean next-token cross entropy of ``batch["tokens"]`` against
+    ``batch["labels"]`` (-100 ignored). Returns (loss, {"ce", "aux"}), aux 0."""
+    x = embed(params["embed"], batch["tokens"])
+    positions = torch.arange(x.shape[1], device=x.device)
+    h = _forward(params, cfg, x, positions, remat=remat)
+    h = norm(params["final_norm"], h, cfg.norm_eps)
+    ce = cross_entropy_loss(_logits(params, h), batch["labels"])
+    return ce, {"ce": ce, "aux": torch.zeros((), device=ce.device)}
 
 
 def build(cfg: ModelConfig) -> Model:

@@ -15,6 +15,7 @@ import torch.nn.functional as F
 from ..configs.base import ModelConfig
 from ..kernels import ops
 from ..kernels.rmsnorm import rmsnorm_bwd_plain, rmsnorm_plain
+from ..precision import widen
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
 
@@ -117,18 +118,18 @@ def swiglu(p, x: torch.Tensor) -> torch.Tensor:
 
 
 # -- rotary embeddings ---------------------------------------------------------
-def rope_tables(positions: torch.Tensor, hd: int, theta: float):
-    """positions: (S,) int -> cos/sin (S, hd/2), float32."""
-    exps = torch.arange(0, hd, 2, dtype=torch.float32, device=positions.device) / hd
+def rope_tables(positions: torch.Tensor, hd: int, theta: float, dtype=torch.float32):
+    """positions: (S,) int -> cos/sin (S, hd/2), float32 (or ``dtype``)."""
+    exps = torch.arange(0, hd, 2, dtype=dtype, device=positions.device) / hd
     inv = 1.0 / (theta ** exps)
-    ang = positions.float()[:, None] * inv[None, :]
+    ang = positions.to(dtype)[:, None] * inv[None, :]
     return torch.cos(ang), torch.sin(ang)
 
 
 def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
     """x: (B, S, H, hd); cos/sin: (S, hd/2). Split-half rotation."""
     dt = x.dtype
-    x1, x2 = x.float().chunk(2, dim=-1)
+    x1, x2 = widen(x).chunk(2, dim=-1)
     c = cos[None, :, None, :]
     s = sin[None, :, None, :]
     return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1).to(dt)
@@ -154,7 +155,7 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor, *,
     the whole (padded) vocab. logits (B,S,V), labels (B,S)."""
     valid = labels != ignore_index
     labels_safe = torch.where(valid, labels, torch.zeros_like(labels))
-    lf = logits.float()
+    lf = widen(logits)
     logz = torch.logsumexp(lf, dim=-1)
     gold = torch.gather(lf, -1, labels_safe[..., None].long())[..., 0]
     nll = (logz - gold) * valid

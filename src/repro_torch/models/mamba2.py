@@ -1,15 +1,17 @@
 """Mamba2 (SSD) mixer: chunked parallel form for prefill, O(1)-state
 recurrent form for decode (arXiv:2405.21060).
 
-The port of ``src/repro/models/mamba2.py`` for the serving path. Recurrence
+The port of ``src/repro/models/mamba2.py``, serving and training. Recurrence
 (heads H, head dim P, state N, chunk Q):
     h_t = a_t * h_{t-1} + dt_t * (B_t ⊗ x_t)        h: (H, P, N)
     y_t = C_t · h_t + D * x_t
 with a_t = exp(dt_t * A), A = -exp(A_log) < 0.
 
 The intra-chunk block goes through ``kernels.ops.ssd_intra_chunk`` (the CUDA
-kernel on the card, its plain version on the CPU); the inter-chunk scan is a
-loop over the chunks. Two differences from ``repro``: the prefill form also
+kernel on the card, its plain version on the CPU; under autograd on the card
+its backward kernel too); the inter-chunk scan is a loop over the chunks,
+differentiable as written (each chunk's entering state kept in a list and
+stacked, no in-place write). Two differences from ``repro``: the prefill form also
 returns the layer's decode state (the raw conv tail and the final SSM state,
 which ``repro``'s ``hybrid.prefill`` recomputes inline), and the decode form
 updates the cache's tensors IN PLACE where JAX returns new ones.
@@ -24,6 +26,7 @@ import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
 from ..kernels import ops
+from ..precision import compute_dtype, widen
 from .layers import dense, dense_init, norm
 
 
@@ -84,21 +87,22 @@ def ssd_chunked(x, dt, A, B_in, C_in, Q: int, h0=None):
         S = S + pad
     nc = S // Q
 
-    lac = (dt * A).float().reshape(Bsz, nc, Q, H).contiguous()          # log a_t
-    xc = (dt[..., None] * x).float().reshape(Bsz, nc, Q, H, P).contiguous()
-    Bc = B_in.float().reshape(Bsz, nc, Q, N).contiguous()
-    Cc = C_in.float().reshape(Bsz, nc, Q, N).contiguous()
+    lac = widen(dt * A).reshape(Bsz, nc, Q, H).contiguous()             # log a_t
+    xc = widen(dt[..., None] * x).reshape(Bsz, nc, Q, H, P).contiguous()
+    Bc = widen(B_in).reshape(Bsz, nc, Q, N).contiguous()
+    Cc = widen(C_in).reshape(Bsz, nc, Q, N).contiguous()
     y_intra, states, _ = ops.ssd_intra_chunk(lac, Cc, Bc, xc)
 
     # inter-chunk scan over h: h_prevs[:, c] is the state entering chunk c
     L = torch.cumsum(lac, dim=2)                                         # (B,nc,Q,H)
     decay = torch.exp(L[:, :, -1, :])                                    # (B,nc,H)
-    h = torch.zeros((Bsz, H, P, N), dtype=torch.float32, device=x.device) \
-        if h0 is None else h0.float()
-    h_prevs = torch.empty((Bsz, nc, H, P, N), dtype=torch.float32, device=x.device)
+    h = torch.zeros((Bsz, H, P, N), dtype=compute_dtype(x.dtype), device=x.device) \
+        if h0 is None else widen(h0)
+    entering = []
     for c in range(nc):
-        h_prevs[:, c] = h
+        entering.append(h)
         h = decay[:, c, :, None, None] * h + states[:, c]
+    h_prevs = torch.stack(entering, dim=1)                               # (B,nc,H,P,N)
 
     # y_inter[t] = exp(L_t) * C_t · h_prev
     y_inter = torch.einsum("bcqn,bchpn->bcqhp", Cc, h_prevs) * torch.exp(L)[..., None]
@@ -135,7 +139,7 @@ def mamba_forward(p, x: torch.Tensor, cfg: ModelConfig, *, cache: MambaCache | N
 
     xs, B_in, C_in = torch.split(xBC, [di, N, N], dim=-1)
     xs = xs.reshape(Bsz, S, H, P)
-    dt = F.softplus(dt_raw.float() + p["dt_bias"])
+    dt = F.softplus(widen(dt_raw) + p["dt_bias"])
     A = -torch.exp(p["A_log"])
 
     if cache is None:
@@ -143,10 +147,10 @@ def mamba_forward(p, x: torch.Tensor, cfg: ModelConfig, *, cache: MambaCache | N
         state = MambaCache(conv=conv_tail, h=hT)
     else:
         a = torch.exp(dt * A)                                           # (B,1,H)
-        xbar = (dt[..., None] * xs).float()                             # (B,1,H,P)
-        dh = torch.einsum("bhp,bn->bhpn", xbar[:, 0], B_in[:, 0].float())
+        xbar = widen(dt[..., None] * xs)                                # (B,1,H,P)
+        dh = torch.einsum("bhp,bn->bhpn", xbar[:, 0], widen(B_in[:, 0]))
         cache.h.mul_(a[:, 0, :, None, None]).add_(dh)
-        y = torch.einsum("bn,bhpn->bhp", C_in[:, 0].float(), cache.h)
+        y = torch.einsum("bn,bhpn->bhp", widen(C_in[:, 0]), cache.h)
         y = y[:, None].to(x.dtype)
         state = cache
 

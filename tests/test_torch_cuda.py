@@ -12,8 +12,12 @@ unchanged under ``inference_mode``; the kernels at the qwen3-moe-30b-a3b
 and granite-moe-1b-a400m shapes, one MoE layer at the published widths
 against the CPU with the routing shared, and the same layer under
 ``torch.cuda.set_sync_debug_mode("error")``; head dim 256 (gemma3-12b) in
-the forward and decode kernels, the backward's refusal of it, and one
-gemma3 block and the smoke internvl2 on the card against the CPU. Every test here
+the forward, decode and backward kernels, and one gemma3 block and the
+smoke internvl2 on the card against the CPU; the SSD intra-chunk backward
+kernel against its plain version in float64, alone and through
+``ops.ssd_intra_chunk``'s autograd Function; rmsnorm's backward at the
+gemma3 and zamba2 training shapes, one launch and two; one gemma3 block and
+one zamba2 group training on the card against the CPU. Every test here
 carries the ``cuda`` marker and skips without a card. The file imports no JAX,
 so it runs where only PyTorch is installed:
 
@@ -37,7 +41,11 @@ from repro_torch.kernels.flash_attention import (
 )
 from repro_torch.kernels.rmsnorm import rmsnorm_bwd_plain, rmsnorm_bwd_triton, rmsnorm_plain, \
     rmsnorm_triton
-from repro_torch.kernels.ssd_scan import ssd_intra_chunk_plain
+from repro_torch.kernels.ssd_scan import (
+    ssd_intra_chunk_bwd_cuda,
+    ssd_intra_chunk_bwd_plain,
+    ssd_intra_chunk_plain,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -438,19 +446,151 @@ def test_decode_kernel_hd256_on_card(cuda_card, T, kv_len, G, dtype):
                                atol=tol, rtol=tol)
 
 
-def test_flash_backward_refuses_hd256(cuda_card):
-    """No backward kernel at hd 256 yet: under autograd the call raises before
-    its forward runs, and nothing falls back; without a gradient it runs."""
-    q, k = _card_inputs(cuda_card, [(1, 64, 2, 256), (1, 64, 1, 256)], torch.bfloat16, 13)
+@ATTN_DTYPE
+def test_flash_backward_launches_hd256(cuda_card, dtype):
+    """Under autograd at hd 256 the forward and backward kernels launch,
+    once each, and the gradients agree with autograd through the plain
+    version on the same values widened to float32; without a gradient the
+    forward alone runs."""
+    td = DTYPES[dtype]
+    q, k, v = _card_inputs(cuda_card, [(1, 96, 4, 256), (1, 96, 2, 256), (1, 96, 2, 256)], td, 13)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    plain = [t.float().requires_grad_() for t in (q, k, v)]
     ops.reset_launches()
-    with pytest.raises(ValueError, match="gemma3 training"):
-        ops.flash_attention(q.clone().requires_grad_(), k, k)
-    assert ops.LAUNCHES == dict.fromkeys(ops.KERNELS, 0)
-    with pytest.raises(ValueError, match="head dim 256"):
-        flash_attention_bwd_cuda(q, k, k, q, torch.zeros((1, 2, 64), device=cuda_card), q)
+    ops.flash_attention(*leaves, window=40).float().square().sum().backward()
+    assert ops.LAUNCHES == {**dict.fromkeys(ops.KERNELS, 0), "flash_attention": 1,
+                            "flash_attention_bwd": 1}
+    flash_attention_plain(*plain, window=40).float().square().sum().backward()
+    for a, b in zip(leaves, plain):
+        assert _rel_err(a.grad, b.grad) < GRAD_TOL[dtype]
     with torch.no_grad():
-        ops.flash_attention(q.requires_grad_(), k, k)
-    assert ops.LAUNCHES["flash_attention"] == 1
+        ops.flash_attention(q, k, v)
+    assert ops.LAUNCHES["flash_attention"] == 2 and ops.LAUNCHES["flash_attention_bwd"] == 1
+
+
+@ATTN_DTYPE
+@pytest.mark.parametrize("B,S,G,K,window", [
+    (2, 1, 1, 1, None), (2, 17, 2, 2, None), (2, 65, 2, 2, 64), (2, 130, 2, 2, None),
+    (2, 300, 2, 8, 100), (1, 129, 5, 2, 64), (4, 2048, 2, 8, None), (4, 2048, 2, 8, 1024)])
+def test_flash_bwd_kernel_hd256_on_card(cuda_card, B, S, G, K, window, dtype):
+    """hd 256: in bf16 two warpgroups on the same 64 keys, each with half of
+    dK's and dV's columns, over a one-stage (Q, dO) ring; in float32 32-row
+    q tiles. One row, ragged tiles, a kv tile of one key, G 5, and gemma3's
+    training shape (B 4, S 2048, 16 q and 8 kv heads), causal and with its
+    1024 window. dq is held on the scale of max|dv| at S = 1, where it is
+    zero."""
+    td = DTYPES[dtype]
+    q, k, v, o, lse, do = _bwd_case(cuda_card, B, S, G, K, 256, window, td, seed=14)
+    got = flash_attention_bwd_cuda(q, k, v, o, lse, do, window=window)
+    want = flash_attention_bwd_plain(q, k, v, o, lse, do, window=window)
+    top = float(want[2].float().abs().max())
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == td and g.shape == w.shape
+        assert _rel_err(g, w, top if S == 1 else None) < GRAD_TOL[dtype], name
+
+
+# -- the SSD intra-chunk backward ---------------------------------------------
+def _ssd_bwd_inputs(dev, shape, la_kind, seed=15):
+    B, nc, Q, H, N, P = shape
+    rng = np.random.default_rng(seed)
+    z = rng.standard_normal((B, nc, Q, H))
+    la = {"small": -np.abs(z) * 0.1, "model": -np.logaddexp(0.0, z), "mixed": z * 0.05}[la_kind]
+    shapes = ((B, nc, Q, N), (B, nc, Q, N), (B, nc, Q, H, P), (B, nc, Q, H, P),
+              (B, nc, H, P, N), (B, nc, H))
+    return [torch.from_numpy(a.astype(np.float32)).to(dev)
+            for a in (la, *(rng.standard_normal(s) for s in shapes))]
+
+
+@pytest.mark.parametrize("la_kind", ["small", "model", "mixed"])
+@pytest.mark.parametrize("shape", [(2, 4, 32, 8, 16, 16), (1, 2, 64, 4, 64, 64),
+                                   (1, 1, 16, 1, 8, 8), (1, 2, 40, 3, 4, 12),
+                                   (2, 2, 128, 113, 64, 64), (1, 1, 128, 2, 64, 128),
+                                   (1, 2, 24, 5, 64, 200), (4, 16, 128, 112, 64, 64)])
+def test_ssd_bwd_kernel_matches_float64_on_card(cuda_card, shape, la_kind):
+    """dla, dC, dB and dx against autograd through the plain forward in
+    float64, each within 1e-4 of its max: one 16-row chunk; Q, N and P off
+    any tile (40, 4, 12); H 113 over the head groups; P 128 and 200 in passes
+    of 64 columns; zamba2-7b's training shape (B 4, 16 chunks, H 112); la in
+    the model's range (L to ~-100 over a chunk) and with la > 0 in places."""
+    args = _ssd_bwd_inputs(cuda_card, shape, la_kind)
+    got = ssd_intra_chunk_bwd_cuda(*args)
+    want = ssd_intra_chunk_bwd_plain(*(a.double() for a in args))
+    for name, g, w in zip(("dla", "dC", "dB", "dx"), got, want):
+        assert g.dtype == torch.float32 and g.shape == w.shape
+        assert _rel_err(g.double(), w) < GRAD_TOL["float32"], name
+
+
+def test_ops_ssd_intra_chunk_autograd_on_card(cuda_card):
+    """The gradient of a scalar function of y and the states through
+    ``ops.ssd_intra_chunk`` on the card (its autograd Function: the forward
+    and backward kernels, one launch each) against the float64 plain
+    version's, within 1e-4 of each max|grad|; tot unused, as in the model.
+    Without the Function the kernel's outputs carry no gradient at all."""
+    la, C, Bm, x, dy, dst, _ = _ssd_bwd_inputs(cuda_card, (2, 3, 64, 6, 16, 32), "model")
+    ins = [t.clone().requires_grad_() for t in (la, C, Bm, x)]
+    ops.reset_launches()
+    y, st, _ = ops.ssd_intra_chunk(*ins)
+    ((y * dy).sum() + (st * dst).sum()).backward()
+    assert ops.LAUNCHES == {**dict.fromkeys(ops.KERNELS, 0), "ssd_intra_chunk": 1,
+                            "ssd_intra_chunk_bwd": 1}
+    ref = [t.double().requires_grad_() for t in (la, C, Bm, x)]
+    ry, rst, _ = ssd_intra_chunk_plain(*ref)
+    ((ry * dy.double()).sum() + (rst * dst.double()).sum()).backward()
+    for name, a, b in zip(("dla", "dC", "dB", "dx"), ins, ref):
+        assert a.grad is not None, name
+        assert _rel_err(a.grad.double(), b.grad) < GRAD_TOL["float32"], name
+
+
+@ATTN_DTYPE
+@pytest.mark.parametrize("rows,d", [(8192, 1024), (8192, 3840), (131072, 256), (65536, 256),
+                                    (8192, 3584), (37, 3840)])
+def test_rmsnorm_bwd_training_shapes_on_card(cuda_card, rows, d, dtype):
+    """granite's, gemma3's (layer norms, q-norm, k-norm) and zamba2's
+    training shapes, and a ragged few rows, with ``bwd_plan``'s programs."""
+    td = DTYPES[dtype]
+    x, s, g = _card_inputs(cuda_card, [(rows, d), (d,), (rows, d)], td, 16)
+    _, inv = rmsnorm_triton(x, s, return_inv=True)
+    got = rmsnorm_bwd_triton(x, s, g, inv)
+    want = rmsnorm_bwd_plain(x, s, g)
+    for name, a, b in zip(("dx", "dscale"), got, want):
+        assert a.dtype == b.dtype == td
+        assert _rel_err(a, b) < GRAD_TOL[dtype], name
+
+
+@pytest.mark.parametrize("arch", ["gemma3-12b", "zamba2-7b"])
+def test_training_block_on_card_matches_cpu(cuda_card, arch):
+    """One gemma3 block (2 local layers, window 32, and a global one) at head
+    dim 256 and one zamba2 group (2 mamba layers and the shared block) at
+    head dim 64, float32, S 48 (longer than gemma3's window; two SSD chunks
+    of 32, the second padded): loss and every grad leaf of the card's kernel
+    path (remat "full") against the CPU plain path, 1e-4 and 1e-4 of
+    max|g|; every backward kernel of the block launched."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import build_model
+    from repro_torch.models.common import tree_map
+    from repro_torch.optim.adamw import leaves
+    from repro_torch.runtime import loss_and_grads
+    cfg = get_smoke(arch)
+    cfg = dataclasses.replace(cfg, head_dim=256, n_layers=3) if cfg.local_global_ratio else \
+        dataclasses.replace(cfg, head_dim=64, n_layers=2)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=cuda_card).manual_seed(0))
+    toks = torch.randint(0, cfg.vocab_size, (2, 49), device=cuda_card,
+                         generator=torch.Generator(device=cuda_card).manual_seed(1))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    ops.reset_launches()
+    loss, _, grads = loss_and_grads(model, params, batch, remat="full")
+    bwd = ["rmsnorm_bwd", "flash_attention_bwd"] + (["ssd_intra_chunk_bwd"]
+                                                    if cfg.family == "hybrid" else [])
+    assert all(ops.LAUNCHES[k] > 0 for k in bwd), ops.LAUNCHES
+    cpu = tree_map(lambda t: t.detach().cpu(), params)
+    host_loss, _, host_grads = loss_and_grads(model, cpu, {k: v.cpu() for k, v in batch.items()},
+                                              remat="full")
+    assert abs(float(loss) - float(host_loss)) < 1e-4
+    for a, b in zip(leaves(grads), leaves(host_grads)):
+        assert _rel_err(a.cpu(), b) < 1e-4
 
 
 @pytest.mark.parametrize("arch,prompt", [("gemma3-12b", 40), ("internvl2-2b", 24)])

@@ -2,7 +2,8 @@
 serve example's own checks (output shape, final cache position, as
 examples/serve_decode.py:58-59) on the dense and the MoE arch, on gemma3
 (its 48-token prompt wraps the 32-slot ring) and on internvl2 (a patch
-prefix), and the train example on the train driver's default MoE arch."""
+prefix), and the train example on the train driver's default MoE arch, on
+gemma3 (48 tokens across its 32-slot window) and on zamba2 (the hybrid)."""
 
 import os
 import subprocess
@@ -22,6 +23,10 @@ ROOT = Path(__file__).resolve().parents[1]
     ("torch_serve_decode.py", ["--arch", "gemma3-12b"]),
     ("torch_serve_decode.py", ["--arch", "internvl2-2b"]),
     ("torch_train_lm.py", ["--steps", "6", "--batch", "2", "--seq", "32", "--ckpt-every", "3"]),
+    ("torch_train_lm.py", ["--arch", "gemma3-12b", "--steps", "6", "--batch", "2", "--seq", "48",
+                           "--ckpt-every", "3"]),
+    ("torch_train_lm.py", ["--arch", "zamba2-7b", "--steps", "6", "--batch", "2", "--seq", "48",
+                           "--ckpt-every", "3"]),
 ])
 def test_example_runs_on_cpu(script, args):
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))

@@ -78,17 +78,13 @@ def test_decode_attention_plain_matches_pallas_hd256(kv_len, dtype):
 
 
 def test_head_dims_of_the_wrappers():
-    """hd 256 for the forward and decode kernels; the backward keeps 64, 112
-    and 128 and refuses 256 naming the ROADMAP item; on the CPU autograd
-    through the plain version takes any head dim."""
+    """hd 256 for the forward, decode and backward kernels (the wrappers
+    refuse any other head dim); on the CPU autograd through the plain
+    version takes any head dim."""
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
     assert fa.HEAD_DIMS == da.HEAD_DIMS == (64, 112, 128, 256)
-    assert fa.BWD_HEAD_DIMS == (64, 112, 128)
-    for hd in fa.BWD_HEAD_DIMS:
-        fa.check_bwd_head_dim(hd)
-    with pytest.raises(ValueError, match="gemma3 training"):
-        fa.check_bwd_head_dim(256)
+    assert fa.BWD_HEAD_DIMS == fa.HEAD_DIMS
     q = torch.randn(1, 8, 2, 256, requires_grad=True)
     tops.flash_attention(q, q.detach(), q.detach()).sum().backward()
     assert q.grad.shape == q.shape
@@ -155,13 +151,14 @@ def test_ops_dispatch_cpu_to_plain_without_counting(monkeypatch):
              for _ in range(2))
     xs = torch.from_numpy(rng.standard_normal((1, 2, 32, 4, 16)).astype(np.float32))
     assert len(tops.ssd_intra_chunk(la, C, Bm, xs)) == 3
+    assert tops.ssd_intra_chunk(la, C, Bm, xs.requires_grad_())[0].requires_grad
     assert calls == ["rmsnorm_plain", "rmsnorm_plain", "flash_attention_plain",
                      "flash_attention_plain", "decode_attention_plain",
-                     "ssd_intra_chunk_plain"]
+                     "ssd_intra_chunk_plain", "ssd_intra_chunk_plain"]
     assert tops.LAUNCHES == dict.fromkeys(tops.KERNELS, 0)
     assert set(tops.KERNELS) == {"rmsnorm", "rmsnorm_bwd", "flash_attention",
                                  "flash_attention_bwd", "decode_attention",
-                                 "ssd_intra_chunk"}
+                                 "ssd_intra_chunk", "ssd_intra_chunk_bwd"}
 
 
 def test_ops_refuse_other_devices():
@@ -174,11 +171,15 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     """The kernel launchers never take a CPU tensor (no silent plain path)."""
     from repro_torch.kernels.decode_attention import decode_attention_cuda
     from repro_torch.kernels.flash_attention import flash_attention_cuda
-    from repro_torch.kernels.rmsnorm import rmsnorm_triton
-    from repro_torch.kernels.ssd_scan import ssd_intra_chunk_cuda
+    from repro_torch.kernels.rmsnorm import rmsnorm_bwd_triton, rmsnorm_triton
+    from repro_torch.kernels.ssd_scan import ssd_intra_chunk_bwd_cuda, ssd_intra_chunk_cuda
     x = torch.ones(1, 8, 2, 64)
     with pytest.raises(ValueError, match="CUDA tensors"):
         rmsnorm_triton(x, torch.ones(64))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        rmsnorm_bwd_triton(x, torch.ones(64), x, x[..., 0])
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ssd_intra_chunk_bwd_cuda(x, x, x, x[..., None], x[..., None], x, x)
     with pytest.raises(ValueError, match="CUDA tensors"):
         flash_attention_cuda(x, x, x)
     with pytest.raises(ValueError, match="CUDA tensors"):
@@ -240,10 +241,30 @@ def test_heads_per_block_bounds():
 
 def test_heads_per_block_main_shape():
     """zamba2-7b prefill on an H100: B 8 x 4 chunks, 112 heads, 132 SMs ->
-    groups of 14 heads, 8 groups a chunk, 256 blocks in two waves."""
+    groups of 14 heads, 8 groups a chunk, 256 blocks in two waves. The
+    backward (no cap on a group) at zamba2's training shape, B 4 x 16
+    chunks: groups of 56 heads, 128 blocks in one wave."""
     from repro_torch.kernels.ssd_scan import heads_per_block
     assert heads_per_block(32, 112, 132) == 14
     assert heads_per_block(1, 1, 132) == 1
+    assert heads_per_block(64, 112, 132, max_heads=112) == 56
+    assert heads_per_block(1, 113, 132, max_heads=113) == 1
+
+
+@pytest.mark.parametrize("rows,d", [(8192, 1024), (8192, 3072), (8192, 3840), (131072, 256),
+                                    (65536, 256), (8192, 3584), (37, 3840), (1, 128)])
+@pytest.mark.parametrize("n_sm", [1, 132])
+def test_rmsnorm_bwd_plan(rows, d, n_sm):
+    """The backward's launch: the forward's blocks, at most two programs an
+    SM and never more than there are row blocks (each program writes one
+    row of column partials), 32-column programs summing them."""
+    from repro_torch.kernels.rmsnorm import bwd_plan
+    p = bwd_plan(rows, d, n_sm)
+    assert p["BLOCK_D"] >= d and p["BLOCK_D"] & (p["BLOCK_D"] - 1) == 0
+    assert p["BLOCK_D"] < 2 * d or d == 1
+    assert p["BLOCK_R"] * p["BLOCK_D"] <= max(4096, p["BLOCK_D"])
+    assert 1 <= p["nprog"] <= min(2 * n_sm, -(-rows // p["BLOCK_R"]))
+    assert p["colsum_block"] == 32 and p["num_warps"] in (4, 8)
 
 
 # -- the decode kernel's split plan and argument packing (no card needed) --------
@@ -304,6 +325,7 @@ def _ctype(c_type: str):
     ("flash_attention.cu", "flash_attention_fwd", "flash_attention"),
     ("flash_attention_bwd.cu", "flash_attention_bwd", "flash_attention"),
     ("ssd_intra_chunk.cu", "ssd_intra_chunk_fwd", "ssd_scan"),
+    ("ssd_intra_chunk_bwd.cu", "ssd_intra_chunk_bwd", "ssd_scan"),
 ])
 def test_ctypes_signatures_match_c(source, fn, module):
     """``_SIGNATURES`` gives ctypes the C entry point's argument types."""
@@ -373,7 +395,7 @@ def test_build_sources_are_the_cu_files(tmp_path, monkeypatch):
     include sm90.cuh, the others no local header."""
     build, csrc = _csrc_copy(tmp_path, monkeypatch)
     assert build.sources() == ["decode_attention", "flash_attention", "flash_attention_bwd",
-                               "ssd_intra_chunk"]
+                               "ssd_intra_chunk", "ssd_intra_chunk_bwd"]
     assert (csrc / "sm90.cuh").exists()
     for name in build.sources():
         want = [csrc / "sm90.cuh"] if name.startswith("flash") else []

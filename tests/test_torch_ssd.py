@@ -20,7 +20,10 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.configs import get_smoke  # noqa: E402
 from repro.models import mamba2 as jm  # noqa: E402
-from repro_torch.kernels.ssd_scan import ssd_intra_chunk_plain  # noqa: E402
+from repro_torch.kernels.ssd_scan import (  # noqa: E402
+    ssd_intra_chunk_bwd_plain,
+    ssd_intra_chunk_plain,
+)
 from repro_torch.models import mamba2 as tm  # noqa: E402
 
 SWEEP = [(2, 4, 32, 8, 16, 16), (1, 2, 64, 4, 64, 64), (1, 1, 128, 2, 32, 64)]
@@ -65,6 +68,36 @@ def test_ssd_intra_chunk_plain_matches_pallas_with_growth(B, nc, Q, H, N, P):
     want = ops.ssd_intra_chunk(*(jnp.asarray(a) for a in arrs))
     for g, w, tol in zip(got, want, (TOL, TOL, TOL_TOT)):
         _close(g, w, tol)
+
+
+# Q 40 is no multiple of 16; la > 0 in places in the signed cases
+BWD_SWEEP = [(s, False) for s in SWEEP] + [((1, 2, 40, 3, 4, 12), True),
+                                           ((2, 1, 24, 2, 8, 4), False)]
+
+
+@pytest.mark.parametrize("shape,signed", BWD_SWEEP)
+def test_ssd_intra_chunk_bwd_plain_matches_jax_grad(shape, signed):
+    """The backward's plain version (what the CUDA backward kernel is held
+    to) against jax.grad through repro's jnp oracle, for dy, dstates and a
+    nonzero dtot: each gradient within 1e-5 of its max."""
+    import jax
+
+    from repro.kernels import ref
+    arrs = _ssd_inputs(6, *shape, signed=signed)
+    y, st, tot = ssd_intra_chunk_plain(*(torch.from_numpy(a) for a in arrs))
+    rng = np.random.default_rng(7)
+    cots = [rng.standard_normal(t.shape).astype(np.float32) for t in (y, st, tot)]
+    assert np.abs(cots[2]).min() > 0
+
+    def f(*ins):
+        outs = ref.ssd_intra_chunk_ref(*ins)
+        return sum(jnp.sum(o * c) for o, c in zip(outs, cots))
+    want = jax.grad(f, argnums=(0, 1, 2, 3))(*(jnp.asarray(a) for a in arrs))
+    got = ssd_intra_chunk_bwd_plain(*(torch.from_numpy(a) for a in (*arrs, *cots)))
+    for g, w in zip(got, want):
+        w = np.asarray(w, np.float64)
+        assert g.shape == w.shape and g.dtype == torch.float32
+        assert np.max(np.abs(g.numpy() - w)) / np.max(np.abs(w)) < 1e-5
 
 
 # -- the mixer -------------------------------------------------------------------

@@ -23,14 +23,13 @@ pytestmark = pytest.mark.skipif(jax_api_drifted(), reason=JAX_DRIFT_REASON)
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
-from repro import optim as joptim  # noqa: E402
 from repro import runtime as jruntime  # noqa: E402
 from repro.configs import get_smoke  # noqa: E402
 from repro.models import build_model as jax_build_model  # noqa: E402
 from repro.models.layers import cross_entropy_loss as jax_ce  # noqa: E402
 from repro.models.layers import rmsnorm_bf16bwd as jax_rmsnorm_bf16bwd  # noqa: E402
 from repro_torch import optim, runtime  # noqa: E402
-from repro_torch.convert import from_numpy, train_state_from_numpy  # noqa: E402
+from repro_torch.convert import train_state_from_numpy  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention_bwd_plain,
     flash_attention_lse_plain,
@@ -39,96 +38,28 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
 from repro_torch.kernels.rmsnorm import rmsnorm_bwd_plain, rmsnorm_plain  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models.layers import cross_entropy_loss, rmsnorm_bf16bwd  # noqa: E402
-from repro_torch.optim.adamw import leaves  # noqa: E402
+from tests import torch_train_parity as par  # noqa: E402
 
 B, S = 2, 24
-LOSS_TOL = 1e-4         # tests/test_models.py:100
-GRAD_TOL = 1e-4         # of each leaf's max|g|
-TRAJ_TOL = 2e-3         # relative, tests/test_distributed.py:60
 ARCHS = ["qwen3-14b", "phi4-mini-3.8b", "qwen2.5-32b"]
-
-
-def _np(tree):
-    """repro arrays -> numpy, bf16 widened to float32, ints kept."""
-    return jax.tree.map(lambda a: np.asarray(a, np.float32) if a.dtype == jnp.bfloat16
-                        else np.asarray(a), tree)
-
-
-def _batch(cfg, seed=3):
-    toks = np.random.default_rng(seed).integers(0, cfg.vocab_size, (B, S + 1)).astype(np.int32)
-    return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
-
-
-def _tb(batch):
-    return {k: torch.from_numpy(v).long() for k, v in batch.items()}
-
-
-def _flat(tree, pre=""):
-    if isinstance(tree, dict):
-        out = {}
-        for k, v in tree.items():
-            out.update(_flat(v, f"{pre}{k}/"))
-        return out
-    return {pre.rstrip("/"): tree}
-
-
-def _port_grads(model, params, batch, remat=None):
-    flat = leaves(params)
-    for p in flat:
-        p.requires_grad_(True)
-    loss, _ = model.loss(params, batch, remat=remat)
-    grads = torch.autograd.grad(loss, flat)
-    for p in flat:
-        p.requires_grad_(False)
-    return float(loss.detach()), grads
 
 
 @pytest.fixture(scope="module", params=ARCHS)
 def pair(request):
-    cfg = get_smoke(request.param)
-    jmodel = jax_build_model(cfg)
-    jparams = jmodel.init(jax.random.PRNGKey(0))
-    return cfg, jmodel, jparams, build_model(cfg), from_numpy(_np(jparams))
+    return par.make_pair(get_smoke(request.param))
 
 
 def test_loss_matches_repro(pair):
-    cfg, jmodel, jparams, tmodel, tparams = pair
-    batch = _batch(cfg)
-    jl, jm = jmodel.loss(jparams, {k: jnp.asarray(v) for k, v in batch.items()})
-    with torch.no_grad():
-        tl, tm = tmodel.loss(tparams, _tb(batch))
-    assert abs(float(tl) - float(jl)) < LOSS_TOL
-    assert float(tm["ce"]) == float(tl) and float(tm["aux"]) == 0.0
+    par.check_loss(pair, par.make_batch(pair[0], B, S), use_kernels=False)
 
 
 def test_grads_match_jax_grad(pair):
     """Every leaf within 1e-4 of its max|g| of jax.grad on repro's plain path."""
-    cfg, jmodel, jparams, tmodel, tparams = pair
-    batch = _batch(cfg)
-    jg = jax.grad(lambda p: jmodel.loss(p, {k: jnp.asarray(v) for k, v in batch.items()})[0])(
-        jparams)
-    _, tg = _port_grads(tmodel, tparams, _tb(batch))
-    jflat = {"/".join(str(getattr(p, "key", p)) for p in path): np.asarray(g)
-             for path, g in jax.tree_util.tree_flatten_with_path(jg)[0]}
-    tflat = dict(zip(sorted(_flat(tparams)), tg))
-    assert tflat.keys() == jflat.keys()
-    for key, want in jflat.items():
-        got = tflat[key].numpy()
-        assert got.shape == want.shape
-        scale = np.max(np.abs(want)) + 1e-12
-        assert np.max(np.abs(got - want)) / scale < GRAD_TOL, key
+    par.check_grads(pair, par.make_batch(pair[0], B, S))
 
 
 def test_remat_full_gives_the_same_grads(pair):
-    cfg, _, _, tmodel, tparams = pair
-    batch = _tb(_batch(cfg))
-    l0, g0 = _port_grads(tmodel, tparams, batch, remat=None)
-    l1, g1 = _port_grads(tmodel, tparams, batch, remat="full")
-    l2, g2 = _port_grads(tmodel, tparams, batch, remat="dots")
-    assert l0 == l1 == l2
-    for a, b, c in zip(g0, g1, g2):
-        torch.testing.assert_close(a, b, atol=1e-7, rtol=1e-6)
-        torch.testing.assert_close(a, c, atol=1e-7, rtol=1e-6)
+    par.check_remat(pair, par.make_batch(pair[0], B, S))
 
 
 def test_cross_entropy_ignore_index_matches_repro():
@@ -171,40 +102,19 @@ def test_five_step_trajectory_matches_repro(variant):
     cfg = get_smoke("phi4-mini-3.8b")
     kw = {"plain": dict(remat=None), "accum2": dict(remat="full", accum=2),
           "compress": dict(remat=None, compress_grads=True)}[variant]
-    opt_kw = dict(lr=1e-3)
-    jrt = jruntime.RuntimeConfig(zero1=False, schedule="constant",
-                                 opt=joptim.AdamWConfig(**opt_kw), **kw)
-    trt = runtime.RuntimeConfig(schedule="constant", opt=optim.AdamWConfig(**opt_kw), **kw)
-    jmodel = jax_build_model(cfg)
-    jstate = jruntime.make_train_state(jmodel, jax.random.PRNGKey(0), jrt)
-    tstate = train_state_from_numpy(_np(jstate))
-    jstep = jax.jit(jruntime.make_train_step(jmodel, jrt))
-    tstep = runtime.make_train_step(build_model(cfg), trt)
-    batch = _batch(cfg, seed=21)
-    jb, tb = {k: jnp.asarray(v) for k, v in batch.items()}, _tb(batch)
-    jl, tl = [], []
-    for _ in range(5):
-        jstate, jm = jstep(jstate, jb)
-        tstate, tm = tstep(tstate, tb)
-        jl.append(float(jm["loss"]))
-        tl.append(float(tm["loss"]))
-        assert float(tm["grad_norm"]) == pytest.approx(float(jm["grad_norm"]), rel=TRAJ_TOL)
-    np.testing.assert_allclose(tl, jl, rtol=TRAJ_TOL)
-    assert tl[-1] < tl[0]
-    assert int(tstate.opt.step) == 5
-    assert all(bool(torch.isfinite(p).all()) for p in leaves(tstate.params))
+    par.check_trajectory(cfg, par.make_batch(cfg, B, S, seed=21), **kw)
 
 
 def test_train_state_converts_leaf_for_leaf():
     cfg = get_smoke("phi4-mini-3.8b")
     jrt = jruntime.RuntimeConfig(compress_grads=True)
     jstate = jruntime.make_train_state(jax_build_model(cfg), jax.random.PRNGKey(0), jrt)
-    tstate = train_state_from_numpy(_np(jstate), dtype=torch.bfloat16)
+    tstate = train_state_from_numpy(par.np_tree(jstate), dtype=torch.bfloat16)
     assert tstate.opt.step.dtype == torch.int32 and int(tstate.opt.step) == 0
     assert tstate.params["embed"]["w"].dtype == torch.bfloat16
     for got, want in ((tstate.opt.master, jstate.opt.master), (tstate.ef.residual,
                                                                 jstate.ef.residual)):
-        g, w = _flat(got), _flat(_np(want))
+        g, w = par.flat(got), par.flat(par.np_tree(want))
         assert g.keys() == w.keys()
         for k in g:
             assert g[k].dtype == torch.float32
@@ -224,12 +134,13 @@ def test_train_driver_on_cpu():
 
 
 @pytest.mark.parametrize("window", [None, 5])
-@pytest.mark.parametrize("S_,G", [(13, 1), (20, 3)])
-def test_flash_bwd_plain_equals_autograd(S_, G, window):
+@pytest.mark.parametrize("S_,G,hd", [(13, 1, 16), (20, 3, 16), (40, 2, 256)])
+def test_flash_bwd_plain_equals_autograd(S_, G, hd, window):
     """The explicit dS = P * (dP - D) form against autograd through the plain
-    forward, float32, GQA and a window; lse against logsumexp."""
+    forward, float32, GQA and a window; lse against logsumexp; at gemma3's
+    head dim 256 too."""
     rng = np.random.default_rng(14)
-    shapes = ((2, S_, 2 * G, 16), (2, S_, 2, 16), (2, S_, 2, 16), (2, S_, 2 * G, 16))
+    shapes = ((2, S_, 2 * G, hd), (2, S_, 2, hd), (2, S_, 2, hd), (2, S_, 2 * G, hd))
     q, k, v, do = (torch.from_numpy(rng.standard_normal(s).astype(np.float32)) for s in shapes)
     leaves_ = [t.clone().requires_grad_() for t in (q, k, v)]
     o = flash_attention_plain(*leaves_, window=window)

@@ -1030,13 +1030,13 @@ def run_train_full_phase(torch, arch: str) -> dict:
     loader = Loader(DatasetSpec(seed=7, vocab=cfg.vocab_size, n_tokens=1 << 24),
                     batch=TRAIN_B, seq=TRAIN_S)
     step = make_train_step(model, rt)
-    state, _ = step(state, to_device(loader.batch_at(0), dev))          # warm-up
+    state, _ = step(state, to_device(loader.batch_at(0), cfg, dev))     # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
     steps = []
     for i in range(1, TRAIN_STEPS + 1):
-        batch = to_device(loader.batch_at(i), dev)
+        batch = to_device(loader.batch_at(i), cfg, dev)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         state, m = step(state, batch)

@@ -31,7 +31,7 @@ MAX_HEADS_PER_BLOCK = 16
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {"ssd_intra_chunk_fwd": [_P] * 7 + [_I] * 6 + [_P]}
 _BWD_SIGNATURES = {"ssd_intra_chunk_bwd": [_P] * 13 + [_I] * 6 + [_P]}
-BWD_MAX_Q, BWD_MAX_N = 128, 64      # the backward kernel's limits
+BWD_MAX_Q, BWD_MAX_N = 128, 64      # the backward kernel's limits (any Q, N % 4 == 0)
 
 
 def ssd_intra_chunk_plain(la: torch.Tensor, C: torch.Tensor, B_in: torch.Tensor,
@@ -74,19 +74,36 @@ def ssd_intra_chunk_bwd_plain(la: torch.Tensor, C: torch.Tensor, B_in: torch.Ten
 def heads_per_block(BC: int, H: int, n_sm: int, max_heads: int = MAX_HEADS_PER_BLOCK) -> int:
     """Heads a block serves: fewest waves of one-block-per-SM blocks over the
     card, each block paying for one C . B^T (about one head's work) besides
-    its heads. The forward takes at most ``MAX_HEADS_PER_BLOCK``; the
-    backward, which keeps no per-head state in shared memory, any number."""
+    its heads; at most ``max_heads`` (the forward's shared memory and scan
+    take ``MAX_HEADS_PER_BLOCK``)."""
     def cost(hg):
         waves = math.ceil(BC * math.ceil(H / hg) / n_sm)
         return waves * (hg + 1)
     return min(range(1, min(H, max_heads) + 1), key=cost)
 
 
-def check_inputs(la: torch.Tensor, C: torch.Tensor, B_in: torch.Tensor, x: torch.Tensor):
+BWD_BLOCK_COST = 2
+
+
+def bwd_heads_per_block(BC: int, H: int, n_sm: int) -> int:
+    """Heads a backward block serves: fewest waves of one-block-per-SM
+    blocks (the kernel's shared memory allows one) over the card, each block
+    paying besides its heads about ``BWD_BLOCK_COST`` heads' time: C . B^T,
+    the first head's copy that nothing overlaps, and its dCB and dB
+    partials (Q^2 + Q N floats, about a head's bytes), which the second
+    kernel reads back. Any group size up to H: a block keeps no per-head
+    state."""
+    def cost(hg):
+        return math.ceil(BC * math.ceil(H / hg) / n_sm) * (hg + BWD_BLOCK_COST)
+    return min(range(1, H + 1), key=cost)
+
+
+def check_inputs(la: torch.Tensor, C: torch.Tensor, B_in: torch.Tensor, x: torch.Tensor,
+                 q_multiple: int = 8):
     """Raise ValueError unless the tensors are what the kernel takes: float32,
     contiguous and 16-byte aligned, la (B,nc,Q,H), C/B_in (B,nc,Q,N),
-    x (B,nc,Q,H,P) with Q % 8 == 0, Q <= 128, N % 4 == 0, P % 4 == 0.
-    Returns (B, nc, Q, H, N, P)."""
+    x (B,nc,Q,H,P) with Q % q_multiple == 0 (8 for the forward, 1 for the
+    backward), Q <= 128, N % 4 == 0, P % 4 == 0. Returns (B, nc, Q, H, N, P)."""
     ts = (la, C, B_in, x)
     if any(t.dtype != torch.float32 for t in ts):
         raise ValueError("ssd_intra_chunk_cuda takes float32 tensors")
@@ -98,9 +115,9 @@ def check_inputs(la: torch.Tensor, C: torch.Tensor, B_in: torch.Tensor, x: torch
     if C.shape[:3] != (Bs, nc, Q) or x.shape[:4] != (Bs, nc, Q, H):
         raise ValueError(f"la {tuple(la.shape)}, C {tuple(C.shape)} and x {tuple(x.shape)} "
                          "do not match")
-    if Q % 8 or Q > 128 or N % 4 or P % 4:
-        raise ValueError(f"ssd_intra_chunk_cuda takes Q % 8 == 0, Q <= 128, N % 4 == 0 and "
-                         f"P % 4 == 0; got Q {Q}, N {N}, P {P}")
+    if Q % q_multiple or Q > 128 or N % 4 or P % 4:
+        raise ValueError(f"ssd_intra_chunk_cuda takes Q % {q_multiple} == 0, Q <= 128, "
+                         f"N % 4 == 0 and P % 4 == 0; got Q {Q}, N {N}, P {P}")
     if not all(t.is_contiguous() and t.data_ptr() % 16 == 0 for t in ts):
         raise ValueError("ssd_intra_chunk_cuda needs contiguous, 16-byte aligned tensors")
     return Bs, nc, Q, H, N, P
@@ -130,32 +147,34 @@ def ssd_intra_chunk_cuda(la: torch.Tensor, C: torch.Tensor, B_in: torch.Tensor,
 
 def ssd_intra_chunk_bwd_cuda(la: torch.Tensor, C: torch.Tensor, B_in: torch.Tensor,
                              x: torch.Tensor, dy: torch.Tensor, dstates: torch.Tensor,
-                             dtot: torch.Tensor):
+                             dtot: torch.Tensor, heads_per_group: int | None = None):
     """Launch the backward kernels on PyTorch's current stream: (dla, dC, dB,
     dx) for the output gradients ``dy`` (like x), ``dstates`` (B,nc,H,P,N)
-    and ``dtot`` (B,nc,H). Takes CUDA tensors that pass ``check_inputs``,
-    Q <= 128 and N <= 64."""
+    and ``dtot`` (B,nc,H). Takes CUDA tensors that pass ``check_inputs``
+    with any Q <= 128, and N <= 64. ``heads_per_group`` overrides
+    ``bwd_heads_per_block``'s plan."""
     ts = (la, C, B_in, x, dy, dstates, dtot)
     if not all(t.is_cuda for t in ts):
         raise ValueError("ssd_intra_chunk_bwd_cuda takes CUDA tensors")
-    Bs, nc, Q, H, N, P = check_inputs(la, C, B_in, x)
+    Bs, nc, Q, H, N, P = check_inputs(la, C, B_in, x, q_multiple=1)
     if Q > BWD_MAX_Q or N > BWD_MAX_N:
         raise ValueError(f"ssd_intra_chunk_bwd_cuda takes Q <= {BWD_MAX_Q} and N <= "
                          f"{BWD_MAX_N}; got Q {Q}, N {N}")
     for name, t, shape in (("dy", dy, x.shape), ("dstates", dstates, (Bs, nc, H, P, N)),
                            ("dtot", dtot, (Bs, nc, H))):
-        if tuple(t.shape) != tuple(shape) or t.dtype != torch.float32 or not t.is_contiguous():
-            raise ValueError(f"ssd_intra_chunk_bwd_cuda: {name} must be contiguous float32 "
-                             f"{tuple(shape)}, got {tuple(t.shape)} {t.dtype}")
+        if tuple(t.shape) != tuple(shape) or t.dtype != torch.float32 or not t.is_contiguous() \
+                or t.data_ptr() % 16:
+            raise ValueError(f"ssd_intra_chunk_bwd_cuda: {name} must be contiguous, 16-byte "
+                             f"aligned float32 {tuple(shape)}, got {tuple(t.shape)} {t.dtype}")
     BC = Bs * nc
     lib = build.library("ssd_intra_chunk_bwd", _BWD_SIGNATURES)
     n_sm = torch.cuda.get_device_properties(x.device).multi_processor_count
-    hg = heads_per_block(BC, H, n_sm, max_heads=H)
-    ngrp = math.ceil(H / hg)
+    hg = heads_per_group or bwd_heads_per_block(BC, H, n_sm)
+    ngrp, Qp = math.ceil(H / hg), -(-Q // 16) * 16
     dla, dC, dB, dx = (torch.empty_like(t) for t in (la, C, B_in, x))
     f32 = dict(dtype=torch.float32, device=x.device)
-    part_dcb = torch.empty((BC, ngrp, Q, Q), **f32)
-    part_dbh = torch.empty((BC, ngrp, Q, N), **f32)
+    part_dcb = torch.empty((BC, ngrp, Qp, Qp), **f32)
+    part_dbh = torch.empty((BC, ngrp, Qp, N), **f32)
     with torch.cuda.device(x.device):
         err = lib.ssd_intra_chunk_bwd(
             la.data_ptr(), C.data_ptr(), B_in.data_ptr(), x.data_ptr(), dy.data_ptr(),

@@ -180,7 +180,7 @@ def profile_train(args, dev: torch.device) -> dict:
     loader = Loader(DatasetSpec(seed=7, vocab=cfg.vocab_size, n_tokens=1 << 24),
                     batch=args.batch, seq=args.seq)
     step = make_train_step(model, rt)
-    batches = [to_device(loader.batch_at(i), dev) for i in range(3)]
+    batches = [to_device(loader.batch_at(i), cfg, dev) for i in range(3)]
     state["s"], _ = step(state["s"], batches[0])                     # warm-up
 
     def run_step():

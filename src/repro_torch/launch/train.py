@@ -39,6 +39,7 @@ from ..core import (
 from ..data import DatasetSpec, Loader, stage_in, write_corpus
 from ..device import resolve_device
 from ..models import build_model
+from ..models.layers import dtype_of
 from ..optim import AdamWConfig
 from ..optim.adamw import leaves
 from ..runtime import RuntimeConfig, TrainState, make_train_state, make_train_step
@@ -48,9 +49,16 @@ def tree_bytes(tree) -> int:
     return sum(t.numel() * t.element_size() for t in leaves(tree))
 
 
-def to_device(batch: dict, device: torch.device) -> dict:
-    """A Loader batch (numpy int32) -> int64 token tensors on ``device``."""
-    return {k: torch.from_numpy(v).to(device=device, dtype=torch.long) for k, v in batch.items()}
+def to_device(batch: dict, cfg: ModelConfig, device: torch.device) -> dict:
+    """A Loader batch (numpy int32) -> int64 token tensors on ``device``. A
+    VLM's batch also takes its prefix, as repro's driver feeds it: zero
+    patch embeddings (B, n_patches, d_model), in the dtype the model takes
+    them in on the serve path."""
+    out = {k: torch.from_numpy(v).to(device=device, dtype=torch.long) for k, v in batch.items()}
+    if cfg.family == "vlm":
+        out["patch_embeds"] = torch.zeros((out["tokens"].shape[0], cfg.n_patches, cfg.d_model),
+                                          dtype=dtype_of(cfg), device=device)
+    return out
 
 
 def train(cfg: ModelConfig, *, steps: int = 20, batch: int = 4, seq: int = 128,
@@ -99,13 +107,13 @@ def train(cfg: ModelConfig, *, steps: int = 20, batch: int = 4, seq: int = 128,
             with torch.no_grad():
                 return float(model.loss(params, b)[0])
 
-        eval_batch = to_device(loader.batch_at(0), dev)
+        eval_batch = to_device(loader.batch_at(0), cfg, dev)
         eval_before = eval_loss(state.params, eval_batch)
 
         losses, drains = [], []
         t0 = time.perf_counter()
         for step in range(start_step, steps):
-            state, metrics = step_fn(state, to_device(loader.batch_at(step), dev))
+            state, metrics = step_fn(state, to_device(loader.batch_at(step), cfg, dev))
             loss = float(metrics["loss"])
             losses.append(loss)
             if (step + 1) % ckpt_every == 0 or step + 1 == steps:

@@ -505,19 +505,35 @@ def _ssd_bwd_inputs(dev, shape, la_kind, seed=15):
 @pytest.mark.parametrize("shape", [(2, 4, 32, 8, 16, 16), (1, 2, 64, 4, 64, 64),
                                    (1, 1, 16, 1, 8, 8), (1, 2, 40, 3, 4, 12),
                                    (2, 2, 128, 113, 64, 64), (1, 1, 128, 2, 64, 128),
-                                   (1, 2, 24, 5, 64, 200), (4, 16, 128, 112, 64, 64)])
+                                   (1, 2, 24, 5, 64, 200), (4, 16, 128, 112, 64, 64),
+                                   (2, 2, 17, 3, 16, 20)])
 def test_ssd_bwd_kernel_matches_float64_on_card(cuda_card, shape, la_kind):
     """dla, dC, dB and dx against autograd through the plain forward in
     float64, each within 1e-4 of its max: one 16-row chunk; Q, N and P off
     any tile (40, 4, 12); H 113 over the head groups; P 128 and 200 in passes
-    of 64 columns; zamba2-7b's training shape (B 4, 16 chunks, H 112); la in
-    the model's range (L to ~-100 over a chunk) and with la > 0 in places."""
+    of 64 columns; zamba2-7b's training shape (B 4, 16 chunks, H 112); Q 17,
+    a full 16-row strip and a strip of one row, so that the diagonal's edge
+    falls inside a tile; la in the model's range (L to ~-100 over a chunk)
+    and with la > 0 in places."""
     args = _ssd_bwd_inputs(cuda_card, shape, la_kind)
     got = ssd_intra_chunk_bwd_cuda(*args)
     want = ssd_intra_chunk_bwd_plain(*(a.double() for a in args))
     for name, g, w in zip(("dla", "dC", "dB", "dx"), got, want):
         assert g.dtype == torch.float32 and g.shape == w.shape
         assert _rel_err(g.double(), w) < GRAD_TOL["float32"], name
+
+
+@pytest.mark.parametrize("shape,plans", [((2, 2, 128, 113, 64, 64), (57, 5)),
+                                         ((1, 3, 96, 9, 32, 136), (9, 2))])
+def test_ssd_bwd_head_groups_agree_on_card(cuda_card, shape, plans):
+    """Two head-group plans on the same inputs (one group of 57 heads and
+    the rest against groups of 5; P 136 in three passes) agree within 1e-6
+    of each output's max|grad|: a plan moves only the order in which the
+    groups' dCB and dB partials are summed."""
+    args = _ssd_bwd_inputs(cuda_card, shape, "model", seed=17)
+    got = [ssd_intra_chunk_bwd_cuda(*args, heads_per_group=hg) for hg in plans]
+    for name, a, b in zip(("dla", "dC", "dB", "dx"), *got):
+        assert _rel_err(a.double(), b.double()) < 1e-6, name
 
 
 def test_ops_ssd_intra_chunk_autograd_on_card(cuda_card):

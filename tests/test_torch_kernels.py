@@ -243,12 +243,40 @@ def test_heads_per_block_main_shape():
     """zamba2-7b prefill on an H100: B 8 x 4 chunks, 112 heads, 132 SMs ->
     groups of 14 heads, 8 groups a chunk, 256 blocks in two waves. The
     backward (no cap on a group) at zamba2's training shape, B 4 x 16
-    chunks: groups of 56 heads, 128 blocks in one wave."""
+    chunks: groups of 56 heads, 128 blocks in one wave (as
+    ``bwd_heads_per_block`` plans it now)."""
     from repro_torch.kernels.ssd_scan import heads_per_block
     assert heads_per_block(32, 112, 132) == 14
     assert heads_per_block(1, 1, 132) == 1
     assert heads_per_block(64, 112, 132, max_heads=112) == 56
     assert heads_per_block(1, 113, 132, max_heads=113) == 1
+
+
+def test_bwd_heads_per_block_plan():
+    """The backward's plan: a group holds 1 to H heads, as evenly as its
+    number of groups allows (no group larger than ceil(H / groups)); its
+    blocks, one an SM, fill whole waves no worse than groups of one head
+    or of all H would (each block also costs ``BWD_BLOCK_COST`` heads); and
+    on an H100 (132 SMs) zamba2's training shape (B 4 x 16 chunks, H 112)
+    takes groups of 56, 128 blocks in one wave, and its prefill shape (B 8
+    x 4 chunks) groups of 28."""
+    import math
+
+    from repro_torch.kernels.ssd_scan import BWD_BLOCK_COST, bwd_heads_per_block
+
+    def cost(BC, H, sm, hg):
+        return math.ceil(BC * math.ceil(H / hg) / sm) * (hg + BWD_BLOCK_COST)
+    for BC in (1, 4, 32, 64, 133):
+        for H in (1, 5, 17, 112, 113):
+            for sm in (1, 114, 132):
+                hg = bwd_heads_per_block(BC, H, sm)
+                groups = math.ceil(H / hg)
+                assert 1 <= hg <= H and hg == math.ceil(H / groups), (BC, H, sm, hg)
+                blocks = BC * groups
+                assert blocks <= math.ceil(blocks / sm) * sm
+                assert cost(BC, H, sm, hg) <= min(cost(BC, H, sm, 1), cost(BC, H, sm, H))
+    assert bwd_heads_per_block(64, 112, 132) == 56
+    assert bwd_heads_per_block(32, 112, 132) == 28
 
 
 @pytest.mark.parametrize("rows,d", [(8192, 1024), (8192, 3072), (8192, 3840), (131072, 256),

@@ -6,11 +6,16 @@ prefill and decode logits, the cache (the prefix counted in it), greedy
 tokens and the loss (the prefix rows dropped before the unembed) with
 repro's ``use_kernels`` on (Pallas interpret mode) and off; decode against
 the port's own full forward; the serve driver on the CPU for both new
-families; the families ``build_model`` still refuses."""
+families; the train driver and ``launch.profile --train`` feeding every
+batch a prefix of zero patch embeddings, as repro's train driver does, and
+the loss on such a batch against repro's; the families ``build_model``
+still refuses."""
 
 import pytest
 
 torch = pytest.importorskip("torch")
+
+import argparse
 
 import numpy as np
 
@@ -24,8 +29,11 @@ import jax.numpy as jnp  # noqa: E402
 from repro.configs import get_smoke  # noqa: E402
 from repro.models import build_model as jax_build_model  # noqa: E402
 from repro_torch.convert import from_numpy  # noqa: E402
+from repro_torch.launch import profile as profile_mod  # noqa: E402
 from repro_torch.launch import serve as serve_mod  # noqa: E402
+from repro_torch.launch import train as train_mod  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
+from repro_torch.models.layers import dtype_of  # noqa: E402
 
 B, S, N_DECODE, N_GREEDY = 2, 32, 4, 16
 REL_TOL = 1e-4                              # tests/test_models.py:100
@@ -177,6 +185,86 @@ def test_make_patch_embeds_is_seeded():
     assert a.shape == (2, NP, CFG.d_model) and a.dtype == torch.float32
     assert torch.equal(a, serve_mod.make_patch_embeds(CFG, 2, "cpu", 5))
     assert 0.05 < float(a.std()) < 0.15
+
+
+def _zero_prefix_ok(batch, cfg) -> None:
+    pe = batch["patch_embeds"]
+    assert tuple(pe.shape) == (batch["tokens"].shape[0], cfg.n_patches, cfg.d_model)
+    assert pe.dtype == dtype_of(cfg) and not bool(pe.any())
+
+
+def _step_spy(real, seen):
+    def make(model, rt):
+        step = real(model, rt)
+
+        def run(state, batch):
+            seen.append(batch)
+            return step(state, batch)
+        return run
+    return make
+
+
+def test_train_driver_feeds_the_zero_prefix(monkeypatch):
+    """``launch.train.train`` on the smoke internvl2 (1 step, B 2): the step
+    batch and every batch the model's loss sees (the held-out eval before and
+    after, and the step's own) carry zero patch embeddings (B, n_patches,
+    d), as ``src/repro/launch/train.py``'s ``to_jax`` feeds them."""
+    from repro_torch.configs import get_smoke as port_smoke
+    cfg = port_smoke("internvl2-2b")
+    steps, losses = [], []
+    real_build = train_mod.build_model
+
+    def build(c):
+        model = real_build(c)
+
+        def loss(params, batch, **kw):
+            losses.append(batch)
+            return model.loss(params, batch, **kw)
+        return model._replace(loss=loss)
+    monkeypatch.setattr(train_mod, "make_train_step", _step_spy(train_mod.make_train_step, steps))
+    monkeypatch.setattr(train_mod, "build_model", build)
+    res = train_mod.train(cfg, steps=1, batch=2, seq=16, device="cpu", log=lambda s: None)
+    assert len(steps) == 1 and len(losses) >= 3 and np.isfinite(res["losses"]).all()
+    for b in steps + losses:
+        _zero_prefix_ok(b, cfg)
+
+
+def test_profile_train_batches_carry_the_zero_prefix(monkeypatch):
+    """``launch.profile --train --arch internvl2-2b`` builds its batches
+    through the same ``to_device``: the warm-up and the profiled step get
+    the zero prefix (run here on the smoke config, the profiler window
+    replaced by one call)."""
+    import repro_torch.runtime as runtime
+    from repro_torch.configs import get_smoke as port_smoke
+    steps = []
+    monkeypatch.setattr(runtime, "make_train_step", _step_spy(runtime.make_train_step, steps))
+    monkeypatch.setattr(profile_mod, "get_config", port_smoke)
+    monkeypatch.setattr(profile_mod, "profile_window", lambda fn, dev, top: fn() or {})
+    monkeypatch.setattr(torch.cuda, "get_device_name", lambda dev=None: "cpu")
+    args = argparse.Namespace(arch="internvl2-2b", layers=1, batch=2, seq=16, seed=0, top=4)
+    profile_mod.profile_train(args, torch.device("cpu"))
+    assert len(steps) == 2
+    for b in steps:
+        _zero_prefix_ok(b, port_smoke("internvl2-2b"))
+
+
+@pytest.mark.parametrize("use_kernels", [False, True])
+def test_loss_on_the_train_drivers_batch_matches_repro(pair, use_kernels):
+    """The batch ``launch.train.to_device`` makes from a loader batch
+    (tokens, labels and the zero prefix) against repro's driver's batch of
+    the same tokens with its float32 zero prefix, from repro's init
+    weights: the losses within 1e-4."""
+    from repro_torch.configs import get_smoke as port_smoke
+    jmodel, jparams, tmodel, tparams, toks, _ = pair
+    labels = np.roll(toks[:, :S], -1, axis=1)
+    labels[:, -1] = -100
+    loader_batch = {"tokens": toks[:, :S], "labels": labels.astype(np.int32)}
+    tb = train_mod.to_device(loader_batch, port_smoke("internvl2-2b"), torch.device("cpu"))
+    jb = {k: jnp.asarray(v) for k, v in loader_batch.items()}
+    jb["patch_embeds"] = jnp.zeros((B, NP, CFG.d_model), jnp.float32)
+    jloss, _ = jmodel.loss(jparams, jb, use_kernels=use_kernels)
+    tloss, _ = tmodel.loss(tparams, tb)
+    assert abs(float(tloss) - float(jloss)) < REL_TOL
 
 
 @pytest.mark.parametrize("arch", ["whisper-tiny", "xlstm-1.3b"])

@@ -6,10 +6,13 @@ Phases, each printing one JSON line to stdout:
   build      compile every CUDA source with nvcc (one process each, in parallel)
   kernel     each kernel against its plain PyTorch version on the card, at the
              shapes the qwen3-14b, zamba2-7b, qwen3-moe-30b-a3b, gemma3-12b
-             (hd 256: local layers' window 1024 and the ring, global layers)
-             and internvl2-2b serving paths and the phi4-mini-3.8b and
-             granite-moe-1b-a400m, gemma3-12b (hd 256, window 1024) and zamba2-7b
-             training paths give it: bf16 (tolerance 2e-2) and
+             (hd 256: local layers' window 1024 and the ring, global layers),
+             internvl2-2b, xlstm-1.3b (its norms) and whisper-tiny (the
+             encoder's non-causal attention over 1500 frames, the
+             cross-attention's 416 or 448 queries against 1500 keys, decode
+             over the 1500 keys) serving paths and the phi4-mini-3.8b and
+             granite-moe-1b-a400m, gemma3-12b (hd 256, window 1024), zamba2-7b,
+             xlstm-1.3b and whisper-tiny training paths give it: bf16 (tolerance 2e-2) and
              float32 (2e-5, TF32 off); ssd_intra_chunk float32 only, 2e-4 on y
              and state and 1e-5 on tot; the backward kernels (flash_attention_bwd,
              rmsnorm_bwd, ssd_intra_chunk_bwd) at 2e-2 (bf16) and 1e-4 (float32)
@@ -27,17 +30,23 @@ Phases, each printing one JSON line to stdout:
              gemma3-12b widths with 6 layers (one block of 5 local and 1
              global) and a 1030-token prompt, longer than the 1024-slot ring
              and out of step with it; internvl2-2b widths with 2 layers and
-             seeded patch embeddings
+             seeded patch embeddings; xlstm-1.3b widths with 8 layers (one
+             block) and a 160-token prompt (two chunks, the second padded);
+             whisper-tiny with all 4 + 4 layers and 1500 seeded frames
   staged     ``repro_torch.launch.serve.serve`` publish -> stage through the
              burst tier -> restore -> prefill 8 x 512 (gemma3 8 x 1536) ->
              decode 32 tokens:
              qwen3-14b with 2 layers (~4.4 GB staged), zamba2-7b with 7
              layers (~2.0 GB), qwen3-moe-30b-a3b with 2 layers (~3.7 GB),
              gemma3-12b with 6 layers and prompt 1536 (the ring wraps),
-             internvl2-2b with 2 layers and 256 seeded patch embeddings
+             internvl2-2b with 2 layers and 256 seeded patch embeddings,
+             xlstm-1.3b with 8 layers, whisper-tiny with all its layers,
+             prompt 416 and 1500 zero frames
   full       qwen3-14b (40 layers), zamba2-7b (81 layers), qwen3-moe-30b-a3b
              (48 layers, ~61 GB), gemma3-12b (48 layers, ~23.5 GB, prompt
-             1536) and internvl2-2b (24 layers, 256 patches + prompt 512),
+             1536), internvl2-2b (24 layers, 256 patches + prompt 512),
+             xlstm-1.3b (48 layers, 3.73 G parameters) and whisper-tiny (4 + 4
+             layers, 1500 zero frames, prompt 416),
              bf16, weights from a seeded generator on the card, no staging:
              the same batch, timed
   train ref  phi4-mini-3.8b and granite-moe-1b-a400m widths with 2 layers,
@@ -52,17 +61,23 @@ Phases, each printing one JSON line to stdout:
              block, a tail of 1), B 1, S 200 (two chunks, the second padded):
              loss and grads only (AdamW is the same code as phi4-mini's), for
              the CPU side's time and memory at vocab 262,144; zamba2's card
-             held to the CPU plain path in float64, float32 reported beside
+             held to the CPU plain path in float64, float32 reported beside;
+             xlstm-1.3b widths with 8 layers (one block), B 1, S 200, loss and
+             grads; whisper-tiny with all layers and seeded frames, B 2, S 200,
+             with AdamW
   train staged  ``repro_torch.launch.train.train`` on the smoke phi4-mini-3.8b,
-             granite-moe-1b-a400m, gemma3-12b and zamba2-7b (head dim 64, the
+             granite-moe-1b-a400m, gemma3-12b, zamba2-7b, xlstm-1.3b and
+             whisper-tiny (head dim 64, the
              kernels' smallest): corpus staged into the burst tier, 6 steps,
              checkpoints saved and drained, held batch improved
   train full phi4-mini-3.8b (8 of 32 layers), granite-moe-1b-a400m (all 24
              layers), gemma3-12b (6 of 48: one block of 5 local and 1 global)
              and zamba2-7b (14 of 81: two groups of 6 with the shared block,
-             a tail of 2) at full width, bf16 params and fp32 AdamW state,
-             B 4, S 2048, remat "full": a warm-up step, then 5 timed steps on
-             Loader batches
+             a tail of 2), xlstm-1.3b (16 of 48: two blocks of 1 sLSTM and 7
+             mLSTM) at full width, bf16 params and fp32 AdamW state, B 4,
+             S 2048, and whisper-tiny (all layers, zero frames) at B 4, S 448,
+             remat "full": a warm-up step, then 5 timed steps on Loader
+             batches
   kernels    per kernel: launches in every staged, full and training run,
              error, times, bound; each run's launch counts must equal what its
              path implies (MoE launches the same kernels as dense)
@@ -102,15 +117,25 @@ B, PROMPT, GEN = 8, 512, 32
 QWEN, ZAMBA, PHI = "qwen3-14b", "zamba2-7b", "phi4-mini-3.8b"
 QMOE, GRAN = "qwen3-moe-30b-a3b", "granite-moe-1b-a400m"
 GEM, INTERN = "gemma3-12b", "internvl2-2b"
+XL, WH = "xlstm-1.3b", "whisper-tiny"
 GEM_LOCAL = GEM + " local"                 # gemma3's local layers' kernel shapes
+# whisper's attention and xlstm's norms: each its own kernel shape
+WH_ENC, WH_CROSS = WH + " encoder", WH + " cross"
+XL_INNER = XL + " d_inner"
 # prompt tokens served (before internvl2's 256 patch embeddings): gemma3's
-# 1536 is longer than its 1024-slot ring and out of step with it
-SERVE_PROMPT = {GEM: 1536}
+# 1536 is longer than its 1024-slot ring and out of step with it; whisper's
+# 416 and 32 generated fill its 448-token text context
+SERVE_PROMPT = {GEM: 1536, WH: 416}
+WH_FRAMES = 1500                           # whisper-tiny's encoder_seq
 TRAIN_B, TRAIN_S, TRAIN_STEPS = 4, 2048, 5
 # phi4-mini cut to 8 of 32; granite at full depth; gemma3 to one block (6 of
-# 48); zamba2 to two groups and a tail (14 of 81)
-TRAIN_LAYERS = {PHI: 8, GRAN: 24, GEM: 6, ZAMBA: 14}
+# 48); zamba2 to two groups and a tail (14 of 81); xlstm to two blocks (16 of
+# 48); whisper at full depth (4 + 4)
+TRAIN_LAYERS = {PHI: 8, GRAN: 24, GEM: 6, ZAMBA: 14, XL: 16, WH: 4}
+TRAIN_SEQ = {WH: 448}                      # whisper's text context
 GEM_TRAIN_LOCAL = GEM + " train local"     # gemma3's local layers' training shapes
+WH_TRAIN_ENC, WH_TRAIN_CROSS = WH + " train encoder", WH + " train cross"
+XL_TRAIN, XL_TRAIN_INNER = XL + " train", XL + " train d_inner"
 
 
 def emit(obj) -> None:
@@ -253,7 +278,13 @@ def kernel_cases(torch):
                         ((B * PROMPT, 3584), ZAMBA), ((B * PROMPT, 7168), None),
                         ((TRAIN_B * TRAIN_S, 3072), PHI), ((B * PROMPT, 2048), QMOE),
                         ((TRAIN_B * TRAIN_S, 1024), GRAN), ((B * 1536, 3840), GEM),
-                        ((2, 33, 128), None), ((1, 1, 512), None)]:
+                        ((2, 33, 128), None), ((1, 1, 512), None),
+                        # xlstm's residual and d_inner norms, serving and
+                        # training; whisper's encoder
+                        ((B * PROMPT, 2048), XL), ((B * PROMPT, 4096), XL_INNER),
+                        ((TRAIN_B * TRAIN_S, 2048), XL_TRAIN),
+                        ((TRAIN_B * TRAIN_S, 4096), XL_TRAIN_INNER),
+                        ((B * WH_FRAMES, 384), WH)]:
         def make(dtype, shape=shape):
             g = torch.Generator(device=dev).manual_seed(3)
             return {"x": randn(g, shape, dtype), "scale": randn(g, shape[-1:], dtype)}
@@ -267,21 +298,22 @@ def kernel_cases(torch):
             flops=4 * n, main=main))
 
     def flash_fwd(a):
-        out = flash_attention_cuda(a["q"], a["k"], a["v"], causal=True, window=a["window"],
-                                   return_lse=a["lse"])
+        out = flash_attention_cuda(a["q"], a["k"], a["v"], causal=a["causal"],
+                                   window=a["window"], return_lse=a["lse"])
         return out[0] if a["lse"] else out
 
-    def flash_make(Bq, S, H, K, hd, window, lse):
+    def flash_make(Bq, S, T, H, K, hd, window, lse, causal):
         def make(dtype):
             g = torch.Generator(device=dev).manual_seed(0)
-            a = {"q": randn(g, (Bq, S, H, hd), dtype), "k": randn(g, (Bq, S, K, hd), dtype),
-                 "v": randn(g, (Bq, S, K, hd), dtype), "window": window, "lse": lse}
+            a = {"q": randn(g, (Bq, S, H, hd), dtype), "k": randn(g, (Bq, T, K, hd), dtype),
+                 "v": randn(g, (Bq, T, K, hd), dtype), "window": window, "lse": lse,
+                 "causal": causal}
             # library yardstick: SDPA on (B, H, S, hd) with kv heads expanded
             a["lq"] = a["q"].transpose(1, 2)
             a["lk"] = a["k"].repeat_interleave(H // K, dim=2).transpose(1, 2)
             a["lv"] = a["v"].repeat_interleave(H // K, dim=2).transpose(1, 2)
             rows = torch.arange(S, device=dev)[:, None]
-            cols = torch.arange(S, device=dev)[None, :]
+            cols = torch.arange(T, device=dev)[None, :]
             ok = cols <= rows
             if window is not None:
                 ok = ok & (cols > rows - window)
@@ -289,7 +321,10 @@ def kernel_cases(torch):
             return a
         return make
 
-    for Bq, S, H, K, hd, window, main in [
+    # (B, S, T, H, K, hd, window, causal, lse, main): S = T and causal, lse
+    # where training writes it for the backward, unless listed otherwise
+    flash_fwd_cases = [(Bq, S, S, H, K, hd, window, True, main in (PHI, GRAN), main)
+                       for Bq, S, H, K, hd, window, main in [
             (TRAIN_B, TRAIN_S, 24, 8, 128, None, PHI),
             (2, 512, 40, 8, 128, None, None), (2, 500, 40, 8, 128, None, None),
             (2, 512, 40, 8, 128, 64, None), (B, PROMPT, 40, 8, 128, None, QWEN),
@@ -304,51 +339,66 @@ def kernel_cases(torch):
             # ones; a ragged edge under a short window; internvl2's prefill
             # (256 patches + 512 tokens)
             (B, 1536, 16, 8, 256, 1024, GEM_LOCAL), (B, 1536, 16, 8, 256, None, GEM),
-            (2, 1000, 16, 8, 256, 100, None), (B, PROMPT + 256, 16, 8, 128, None, INTERN)]:
-        pairs = sum(min(r + 1, window or r + 1) for r in range(S))   # valid (row, col)
-        lse = main in (PHI, GRAN)      # training writes each row's lse for the backward
+            (2, 1000, 16, 8, 256, 100, None), (B, PROMPT + 256, 16, 8, 128, None, INTERN)]]
+    # whisper-tiny (6 heads of 64): the encoder (non-causal, S = T = 1500),
+    # the decoder's cross-attention (non-causal, prompt 416 against 1500
+    # keys) and self-attention (causal) when serving; the encoder and the
+    # cross-attention when training (S 448, lse written); ragged S and T
+    flash_fwd_cases += [
+        (B, WH_FRAMES, WH_FRAMES, 6, 6, 64, None, False, False, WH_ENC),
+        (B, 416, WH_FRAMES, 6, 6, 64, None, False, False, WH_CROSS),
+        (B, 416, 416, 6, 6, 64, None, True, False, WH),
+        (TRAIN_B, WH_FRAMES, WH_FRAMES, 6, 6, 64, None, False, True, WH_TRAIN_ENC),
+        (TRAIN_B, 448, WH_FRAMES, 6, 6, 64, None, False, True, WH_TRAIN_CROSS),
+        (2, 129, 257, 6, 3, 64, None, False, True, None)]
+    for Bq, S, T, H, K, hd, window, causal, lse, main in flash_fwd_cases:
+        # valid (row, col) pairs
+        pairs = sum(min(r + 1, window or r + 1) for r in range(S)) if causal else S * T
         cases.append(dict(
-            kernel="flash_attention", desc={"B": Bq, "S": S, "T": S, "H": H, "K": K,
-                                            "hd": hd, "causal": True, "window": window,
+            kernel="flash_attention", desc={"B": Bq, "S": S, "T": T, "H": H, "K": K,
+                                            "hd": hd, "causal": causal, "window": window,
                                             "lse": lse},
-            make=flash_make(Bq, S, H, K, hd, window, lse),
+            make=flash_make(Bq, S, T, H, K, hd, window, lse, causal),
             run=lambda a: flash_fwd(a),
-            plain=lambda a: flash_attention_plain(a["q"], a["k"], a["v"], causal=True,
+            plain=lambda a: flash_attention_plain(a["q"], a["k"], a["v"], causal=a["causal"],
                                                   window=a["window"]),
             library=lambda a: F.scaled_dot_product_attention(
-                a["lq"], a["lk"], a["lv"], attn_mask=a["mask"], is_causal=a["mask"] is None),
-            nbytes=lambda isz, Bq=Bq, S=S, H=H, K=K, hd=hd, lse=lse: (
-                2 * Bq * S * H * hd + 2 * Bq * S * K * hd) * isz + 4 * Bq * H * S * lse,
+                a["lq"], a["lk"], a["lv"], attn_mask=a["mask"],
+                is_causal=a["mask"] is None and a["causal"]),
+            nbytes=lambda isz, Bq=Bq, S=S, T=T, H=H, K=K, hd=hd, lse=lse: (
+                2 * Bq * S * H * hd + 2 * Bq * T * K * hd) * isz + 4 * Bq * H * S * lse,
             flops=4 * Bq * H * hd * pairs, main=main))
 
     # backward kernels: the phi4-mini-3.8b training shapes, then a window, a
     # ragged S, hd 112 (zamba2's shared block, MHA), hd 64 with G = 4, and a
     # second 128-key tile holding one key under a window shorter than a tile
-    def flash_bwd_make(Bq, S, H, K, hd, window):
+    def flash_bwd_make(Bq, S, T, H, K, hd, window, causal):
         def make(dtype):
             g = torch.Generator(device=dev).manual_seed(4)
-            a = {"q": randn(g, (Bq, S, H, hd), dtype), "k": randn(g, (Bq, S, K, hd), dtype),
-                 "v": randn(g, (Bq, S, K, hd), dtype), "do": randn(g, (Bq, S, H, hd), dtype),
-                 "window": window}
+            a = {"q": randn(g, (Bq, S, H, hd), dtype), "k": randn(g, (Bq, T, K, hd), dtype),
+                 "v": randn(g, (Bq, T, K, hd), dtype), "do": randn(g, (Bq, S, H, hd), dtype),
+                 "window": window, "causal": causal}
             # o and lse from the forward kernel (uncounted), its lse checked
-            a["o"], a["lse"] = flash_attention_cuda(a["q"], a["k"], a["v"], window=window,
-                                                    return_lse=True)
-            want = flash_attention_lse_plain(a["q"], a["k"], window=window)
+            a["o"], a["lse"] = flash_attention_cuda(a["q"], a["k"], a["v"], causal=causal,
+                                                    window=window, return_lse=True)
+            want = flash_attention_lse_plain(a["q"], a["k"], causal=causal, window=window)
             a["lse_err"] = float((a["lse"] - want).abs().max() / want.abs().max())
             # library yardstick: autograd through SDPA (GQA), its forward done here
             a["lq"], a["lk"], a["lv"] = (t.transpose(1, 2).detach().requires_grad_()
                                          for t in (a["q"], a["k"], a["v"]))
             rows = torch.arange(S, device=dev)[:, None]
-            cols = torch.arange(S, device=dev)[None, :]
+            cols = torch.arange(T, device=dev)[None, :]
             mask = None if window is None else (cols <= rows) & (cols > rows - window)
             a["lout"] = F.scaled_dot_product_attention(
-                a["lq"], a["lk"], a["lv"], attn_mask=mask, is_causal=mask is None,
+                a["lq"], a["lk"], a["lv"], attn_mask=mask, is_causal=mask is None and causal,
                 enable_gqa=True)
             a["ldo"] = a["do"].transpose(1, 2)
             return a
         return make
 
-    for Bq, S, H, K, hd, window, main in [
+    # (B, S, T, H, K, hd, window, causal, main): S = T and causal unless listed
+    flash_bwd_cases = [(Bq, S, S, H, K, hd, window, True, main)
+                       for Bq, S, H, K, hd, window, main in [
             (TRAIN_B, TRAIN_S, 24, 8, 128, None, PHI), (2, 1024, 24, 8, 128, 256, None),
             (2, 1000, 24, 8, 128, None, None), (2, 512, 32, 32, 112, None, None),
             (2, 300, 16, 4, 64, None, None), (2, 65, 24, 8, 128, 64, None),
@@ -361,22 +411,33 @@ def kernel_cases(torch):
             (2, 1000, 16, 8, 256, 100, None), (2, 17, 4, 2, 256, None, None),
             (2, 65, 4, 2, 256, 64, None),
             # zamba2's shared block in training (hd 112, MHA)
-            (TRAIN_B, TRAIN_S, 32, 32, 112, None, ZAMBA)]:
-        pairs = sum(min(r + 1, window or r + 1) for r in range(S))
+            (TRAIN_B, TRAIN_S, 32, 32, 112, None, ZAMBA)]]
+    # whisper-tiny training (6 heads of 64): the encoder (non-causal, 1500),
+    # the cross-attention (non-causal, 448 queries against 1500 keys), the
+    # decoder's self-attention (causal); ragged S and T, GQA
+    flash_bwd_cases += [
+        (TRAIN_B, WH_FRAMES, WH_FRAMES, 6, 6, 64, None, False, WH_TRAIN_ENC),
+        (TRAIN_B, 448, WH_FRAMES, 6, 6, 64, None, False, WH_TRAIN_CROSS),
+        (TRAIN_B, 448, 448, 6, 6, 64, None, True, WH),
+        (2, 129, 257, 6, 3, 64, None, False, None), (2, 300, 65, 4, 2, 64, None, False, None)]
+    for Bq, S, T, H, K, hd, window, causal, main in flash_bwd_cases:
+        pairs = sum(min(r + 1, window or r + 1) for r in range(S)) if causal else S * T
         cases.append(dict(
             kernel="flash_attention_bwd",
-            desc={"B": Bq, "S": S, "T": S, "H": H, "K": K, "hd": hd, "causal": True,
+            desc={"B": Bq, "S": S, "T": T, "H": H, "K": K, "hd": hd, "causal": causal,
                   "window": window},
-            make=flash_bwd_make(Bq, S, H, K, hd, window), grads=True,
+            make=flash_bwd_make(Bq, S, T, H, K, hd, window, causal), grads=True,
             run=lambda a: flash_attention_bwd_cuda(a["q"], a["k"], a["v"], a["o"], a["lse"],
-                                                   a["do"], window=a["window"]),
+                                                   a["do"], causal=a["causal"],
+                                                   window=a["window"]),
             plain=lambda a: flash_attention_bwd_plain(a["q"], a["k"], a["v"], a["o"], a["lse"],
-                                                      a["do"], window=a["window"]),
+                                                      a["do"], causal=a["causal"],
+                                                      window=a["window"]),
             library=lambda a: torch.autograd.grad(a["lout"], (a["lq"], a["lk"], a["lv"]),
                                                   a["ldo"], retain_graph=True),
             # q, o, dO and dq (H heads), k, v, dk and dv (K heads); lse
-            nbytes=lambda isz, Bq=Bq, S=S, H=H, K=K, hd=hd: (4 * Bq * S * H * hd
-                                                             + 4 * Bq * S * K * hd) * isz
+            nbytes=lambda isz, Bq=Bq, S=S, T=T, H=H, K=K, hd=hd: (4 * Bq * S * H * hd
+                                                                  + 4 * Bq * T * K * hd) * isz
             + 4 * Bq * H * S,
             # 2.5 times the causal forward's: S, dP, dV, dK, dQ
             flops=10 * Bq * H * hd * pairs, main=main))
@@ -400,7 +461,10 @@ def kernel_cases(torch):
                         # zamba2's
                         ((TRAIN_B * TRAIN_S, 3840), GEM), ((TRAIN_B * TRAIN_S * 16, 256), None),
                         ((TRAIN_B * TRAIN_S * 8, 256), None),
-                        ((TRAIN_B * TRAIN_S, 3584), ZAMBA)]:
+                        ((TRAIN_B * TRAIN_S, 3584), ZAMBA),
+                        # xlstm's residual and d_inner norms; whisper's encoder
+                        ((TRAIN_B * TRAIN_S, 2048), XL), ((TRAIN_B * TRAIN_S, 4096), XL_INNER),
+                        ((TRAIN_B * WH_FRAMES, 384), WH)]:
         n = math.prod(shape)
         cases.append(dict(
             kernel="rmsnorm_bwd", desc={"shape": list(shape)}, make=rms_bwd_make(shape),
@@ -426,7 +490,11 @@ def kernel_cases(torch):
                       (16, 8, 256, 1024, 1024, None, GEM_LOCAL),
                       (16, 8, 256, 1024, 300, None, None),
                       (16, 8, 256, 1536 + GEN, 1537, None, GEM),
-                      (16, 8, 128, 256 + T, 256 + mid, None, INTERN)]
+                      (16, 8, 128, 256 + T, 256 + mid, None, INTERN),
+                      # whisper-tiny: the cross-attention over all 1500
+                      # encoder keys; the self-attention's cache mid-way
+                      (6, 6, 64, WH_FRAMES, WH_FRAMES, None, WH_CROSS),
+                      (6, 6, 64, 416 + GEN, 416 + GEN // 2, None, WH)]
     for H, K, hd, T, kv_len, window, main in decode_shapes:
         def make(dtype, H=H, K=K, hd=hd, T=T, kv_len=kv_len, window=window):
             g = torch.Generator(device=dev).manual_seed(1)
@@ -596,13 +664,31 @@ def run_kernel_phase(torch) -> dict:
 
 
 # -- model phases ----------------------------------------------------------------
+def _xlstm_norms(cfg) -> int:
+    """An xLSTM forward's norms: 3 a sLSTM block (in, gated, FFN), 2 an
+    mLSTM layer (its own and the mixer's gated one), the final norm."""
+    nb = cfg.n_layers // cfg.slstm_period
+    return 3 * nb + 2 * nb * (cfg.slstm_period - 1) + 1
+
+
 def expected_launches(cfg, gen: int) -> dict:
     """One prefill and gen - 1 decode steps. Dense and MoE: flash L per prefill,
     decode L per step, rmsnorm 2L + 1 layer norms (and 2L qk-norms) per
     forward. Hybrid (ng shared-block sites): flash ng per prefill, decode ng
-    per step, rmsnorm 2L + 2ng + 1 per forward, ssd L per prefill."""
+    per step, rmsnorm 2L + 2ng + 1 per forward, ssd L per prefill. xLSTM:
+    rmsnorm only (``_xlstm_norms`` a forward). Whisper (E encoder layers, L
+    decoder layers): the encoder once, its 2E norms and enc_norm, flash E;
+    each decoder forward 3L + 1 norms; flash 2L at the prefill (self and
+    cross), decode 2L a step."""
     L = cfg.n_layers
     bwd = {"rmsnorm_bwd": 0, "flash_attention_bwd": 0, "ssd_intra_chunk_bwd": 0}
+    none = {"flash_attention": 0, "decode_attention": 0, "ssd_intra_chunk": 0}
+    if cfg.family == "ssm":
+        return {**none, "rmsnorm": _xlstm_norms(cfg) * gen, **bwd}
+    if cfg.family == "audio":
+        E = cfg.encoder_layers
+        return {**none, "rmsnorm": 2 * E + 1 + (3 * L + 1) * gen, "flash_attention": E + 2 * L,
+                "decode_attention": 2 * L * (gen - 1), **bwd}
     if cfg.family == "hybrid":
         ng = L // cfg.shared_attn_every
         return {"rmsnorm": (2 * L + 2 * ng + 1) * gen, "flash_attention": ng,
@@ -619,8 +705,28 @@ def expected_train_launches(cfg, steps: int, evals: int, remat: bool) -> dict:
     outside the remat. Hybrid (ng shared-block sites, the shared block not
     wrapped, as ``repro``'s): per mamba layer 2 norms (its own and the
     mixer's gated one) and one SSD intra-chunk block; per site 2 norms (and
-    2 qk-norms) and one attention; plus the final norm."""
+    2 qk-norms) and one attention; plus the final norm. xLSTM (the mLSTM
+    layers wrapped, the sLSTM blocks not, as ``repro``'s): 2 norms an mLSTM
+    layer, 3 a sLSTM block, the final norm. Whisper (every encoder and
+    decoder layer wrapped): 2 norms and one attention an encoder layer, 3
+    norms and two attentions a decoder layer, enc_norm and the final norm
+    outside."""
     fwd = 2 if remat else 1
+    if cfg.family == "ssm":
+        nb = cfg.n_layers // cfg.slstm_period
+        m_norms = 2 * nb * (cfg.slstm_period - 1)
+        once = _xlstm_norms(cfg) - m_norms
+        return {"rmsnorm": steps * (once + m_norms * fwd) + evals * (once + m_norms),
+                "flash_attention": 0, "decode_attention": 0, "ssd_intra_chunk": 0,
+                "rmsnorm_bwd": steps * (once + m_norms), "flash_attention_bwd": 0,
+                "ssd_intra_chunk_bwd": 0}
+    if cfg.family == "audio":
+        E, L = cfg.encoder_layers, cfg.n_layers
+        norms, attn = 2 * E + 3 * L, E + 2 * L
+        return {"rmsnorm": steps * (norms * fwd + 2) + evals * (norms + 2),
+                "flash_attention": (steps * fwd + evals) * attn, "decode_attention": 0,
+                "ssd_intra_chunk": 0, "rmsnorm_bwd": steps * (norms + 2),
+                "flash_attention_bwd": steps * attn, "ssd_intra_chunk_bwd": 0}
     if cfg.family == "hybrid":
         L = cfg.n_layers
         ng = L // cfg.shared_attn_every
@@ -637,17 +743,24 @@ def expected_train_launches(cfg, steps: int, evals: int, remat: bool) -> dict:
             "flash_attention_bwd": steps * L, "ssd_intra_chunk_bwd": 0}
 
 
-def patch_embeds(cfg, B: int, dev):
-    """internvl2's seeded patch embeddings on ``dev`` (None for other
-    families), as the serve driver makes them."""
-    from repro_torch.launch.serve import make_patch_embeds
-    return make_patch_embeds(cfg, B, dev, 2) if cfg.family == "vlm" else None
+def model_inputs(torch, cfg, B: int, dev, seeded: bool = False) -> dict:
+    """What ``cfg``'s family takes beside the prompts, on ``dev``, as the
+    serve driver makes it (internvl2's seeded patch embeddings, whisper's
+    zero frames); with ``seeded`` whisper's frames 0.1 N(0, 1) from a seed
+    instead, so that a reference's encoder sees varied input."""
+    from repro_torch.launch.serve import model_inputs as driver_inputs
+    if seeded and cfg.family == "audio":
+        g = torch.Generator(device=dev).manual_seed(3)
+        return {"frames": 0.1 * torch.randn((B, cfg.encoder_seq, cfg.d_model), device=dev,
+                                            generator=g).to(getattr(torch, cfg.dtype))}
+    return driver_inputs(cfg, B, dev, 2)
 
 
 def run_reference_phase(torch, arch: str, n_layers: int, prompt: int) -> None:
     """``arch``'s widths, ``n_layers`` layers, float32, B 2, gen 4: kernels on
     the card against the plain path on the CPU, same weights, prompts and
-    (internvl2) patch embeddings."""
+    (internvl2) patch embeddings or (whisper, all its encoder layers) seeded
+    frames."""
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import generate
     from repro_torch.models import build_model
@@ -658,21 +771,21 @@ def run_reference_phase(torch, arch: str, n_layers: int, prompt: int) -> None:
     params = model.init(torch.Generator(device=dev).manual_seed(0))
     prompts = torch.randint(0, cfg.vocab_size, (2, prompt), device=dev,
                             generator=torch.Generator(device=dev).manual_seed(1))
-    pe = patch_embeds(cfg, 2, dev)
+    extra = model_inputs(torch, cfg, 2, dev, seeded=True)
     t0 = time.perf_counter()
-    card = generate(model, params, prompts, 4, pe)
+    card = generate(model, params, prompts, 4, **extra)
     card_s = time.perf_counter() - t0
     cpu_params = tree_map(lambda t: t.cpu(), params)
     del params
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    host = generate(model, cpu_params, prompts.cpu(), 4, None if pe is None else pe.cpu())
+    host = generate(model, cpu_params, prompts.cpu(), 4, **{k: v.cpu() for k, v in extra.items()})
     cpu_s = time.perf_counter() - t0
     a, b = card["last_logits"].float().cpu(), host["last_logits"].float()
     rel = float((a - b).abs().max() / b.abs().max())
     same = bool(torch.equal(card["tokens"].cpu(), host["tokens"]))
     emit({"phase": "reference", "cfg": f"{arch} n_layers={n_layers} float32", "B": 2,
-          "prompt": prompt, "patches": 0 if pe is None else pe.shape[1], "gen": 4,
+          "prompt": prompt, **_prefix_desc(extra), "gen": 4,
           "logits_rel_err": rel, "tol": 1e-4, "tokens_equal": same, "card_s": card_s,
           "cpu_s": cpu_s})
     if not (rel < 1e-4 and same):
@@ -768,6 +881,12 @@ def run_moe_reference_phase(torch, arch: str, n_layers: int, prompt: int) -> Non
         raise AssertionError(f"{arch}: card kernel path disagrees with the CPU plain path")
 
 
+def _prefix_desc(extra: dict) -> dict:
+    """The rows a run's extra inputs put before or beside the prompt."""
+    return {"patches": extra["patch_embeds"].shape[1] if "patch_embeds" in extra else 0,
+            **({"frames": extra["frames"].shape[1]} if "frames" in extra else {})}
+
+
 def check_output(tokens, vocab: int, shape) -> None:
     if tuple(tokens.shape) != shape:
         raise AssertionError(f"generated shape {tuple(tokens.shape)} != {shape}")
@@ -797,6 +916,7 @@ def run_staged_phase(torch, arch: str, n_layers: int) -> dict:
         raise AssertionError("staged bytes differ from what was published")
     emit({"phase": "staged", "cfg": f"{arch} n_layers={n_layers} bf16", "B": B,
           "prompt": prompt, "patches": cfg.n_patches if cfg.family == "vlm" else 0,
+          **({"frames": cfg.encoder_seq} if cfg.family == "audio" else {}),
           "gen": GEN, "stage_bytes": res["stage_bytes"],
           "manifest_bytes": res["manifest_bytes"],
           "stage_modeled_s": res["stage_modeled_s"], "load_modeled_s": res["load_modeled_s"],
@@ -824,11 +944,11 @@ def run_full_phase(torch, arch: str) -> dict:
     prompt = SERVE_PROMPT.get(arch, PROMPT)
     prompts = torch.randint(0, cfg.vocab_size, (B, prompt), device=dev,
                             generator=torch.Generator(device=dev).manual_seed(1))
-    pe = patch_embeds(cfg, B, dev)
-    generate(model, params, prompts, 2, pe)                 # warm-up
+    extra = model_inputs(torch, cfg, B, dev)
+    generate(model, params, prompts, 2, **extra)            # warm-up
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
-    res = generate(model, params, prompts, GEN, pe)
+    res = generate(model, params, prompts, GEN, **extra)
     got = dict(ops.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     check_output(res["tokens"], cfg.padded_vocab, (B, GEN))
@@ -837,7 +957,7 @@ def run_full_phase(torch, arch: str) -> dict:
     steps = GEN - 1
     emit({"phase": "full", "cfg": f"{arch} {cfg.n_layers} layers bf16", "params": n_params,
           "weight_bytes": weight_bytes, "init_s": init_s, "B": B, "prompt": prompt,
-          "patches": 0 if pe is None else pe.shape[1], "gen": GEN,
+          **_prefix_desc(extra), "gen": GEN,
           "prefill_ms": res["prefill_s"] * 1e3,
           "decode_ms_per_step": res["decode_s"] / steps * 1e3,
           "decode_tokens_per_s": B * steps / res["decode_s"],
@@ -900,7 +1020,8 @@ def run_train_reference_phase(torch, arch: str, n_layers: int = 2, n_batch: int 
     cpu_params = tree_map(lambda t: t.to("cpu", copy=True), params)   # stepped in place
     g = torch.Generator(device=dev).manual_seed(1)
     toks = torch.randint(0, cfg.vocab_size, (n_batch, seq + 1), device=dev, generator=g)
-    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:],
+             **model_inputs(torch, cfg, n_batch, dev, seeded=True)}
     sides, tape = {}, []
     ops.reset_launches()
     for side in ("card", "cpu") + (("cpu64",) if oracle64 else ()):
@@ -911,6 +1032,7 @@ def run_train_reference_phase(torch, arch: str, n_layers: int = 2, n_batch: int 
             torch.cuda.empty_cache()
         if side == "cpu64":
             params = tree_map(lambda t: t.detach().double(), cpu_params)
+            batch = {k: v.double() if v.is_floating_point() else v for k, v in batch.items()}
         if cfg.family != "moe":
             routing = contextlib.nullcontext({"flips": 0, "logit_err": 0.0})
         elif side == "card":
@@ -1019,6 +1141,7 @@ def run_train_full_phase(torch, arch: str) -> dict:
     from repro_torch.runtime import RuntimeConfig, make_train_state, make_train_step
     full = get_config(arch)
     cfg = dataclasses.replace(full, n_layers=TRAIN_LAYERS[arch])
+    seq = TRAIN_SEQ.get(arch, TRAIN_S)
     model = build_model(cfg)
     rt = RuntimeConfig(remat="full", opt=AdamWConfig(lr=1e-4), schedule="constant")
     dev = torch.device("cuda")
@@ -1028,7 +1151,7 @@ def run_train_full_phase(torch, arch: str) -> dict:
     init_s = time.perf_counter() - t0
     n_params = sum(t.numel() for t in leaves(state.params))
     loader = Loader(DatasetSpec(seed=7, vocab=cfg.vocab_size, n_tokens=1 << 24),
-                    batch=TRAIN_B, seq=TRAIN_S)
+                    batch=TRAIN_B, seq=seq)
     step = make_train_step(model, rt)
     state, _ = step(state, to_device(loader.batch_at(0), cfg, dev))     # warm-up
     torch.cuda.synchronize()
@@ -1044,15 +1167,17 @@ def run_train_full_phase(torch, arch: str) -> dict:
         dt = time.perf_counter() - t0
         steps.append({"loss": float(m["loss"]), "ce": float(m["ce"]), "aux": float(m["aux"]),
                       "grad_norm": float(m["grad_norm"]),
-                      "step_ms": dt * 1e3, "tokens_per_s": TRAIN_B * TRAIN_S / dt,
+                      "step_ms": dt * 1e3, "tokens_per_s": TRAIN_B * seq / dt,
                       "peak_memory_bytes": torch.cuda.max_memory_allocated()})
     got = dict(ops.LAUNCHES)
     mean_ms = sum(x["step_ms"] for x in steps) / len(steps)
     emit({"phase": "train full",
           "cfg": f"{arch} {cfg.n_layers} of {full.n_layers} layers bf16, fp32 AdamW",
-          "params": n_params, "init_s": init_s, "B": TRAIN_B, "S": TRAIN_S,
+          "params": n_params, "init_s": init_s, "B": TRAIN_B, "S": seq,
+          **({"frames": cfg.encoder_seq} if cfg.family == "audio" else {}),
           "remat": rt.remat, "steps": steps, "mean_step_ms": mean_ms,
-          "mean_tokens_per_s": TRAIN_B * TRAIN_S / mean_ms * 1e3, "launches": got})
+          "mean_tokens_per_s": TRAIN_B * seq / mean_ms * 1e3,
+          "peak_memory_bytes": max(x["peak_memory_bytes"] for x in steps), "launches": got})
     if not all(math.isfinite(x["loss"]) and x["grad_norm"] > 0 for x in steps):
         raise AssertionError(f"train full {arch}: a non-finite loss or a zero grad norm")
     check_launches(got, expected_train_launches(cfg, TRAIN_STEPS, 0, True),
@@ -1140,9 +1265,16 @@ def main() -> int:
     run_reference_phase(torch, GEM, 6, 1030)
     torch.cuda.empty_cache()
     run_reference_phase(torch, INTERN, 2, 32)
+    torch.cuda.empty_cache()
+    # xlstm: one block (1 sLSTM, 7 mLSTM), a prompt of two 128-token chunks,
+    # the second padded; whisper: all 4 + 4 layers, 1500 seeded frames
+    run_reference_phase(torch, XL, 8, 160)
+    torch.cuda.empty_cache()
+    run_reference_phase(torch, WH, 4, 32)
     log(f"chip_smoke: reference phases done at {time.perf_counter() - t_start:.1f} s")
     launches = {}
-    for arch, staged_layers in ((QWEN, 2), (ZAMBA, 7), (QMOE, 2), (GEM, 6), (INTERN, 2)):
+    for arch, staged_layers in ((QWEN, 2), (ZAMBA, 7), (QMOE, 2), (GEM, 6), (INTERN, 2),
+                                (XL, 8), (WH, 4)):
         torch.cuda.empty_cache()
         launches[f"staged {arch}"] = run_staged_phase(torch, arch, staged_layers)
         torch.cuda.empty_cache()
@@ -1153,7 +1285,9 @@ def main() -> int:
     # longer than it; zamba2 held to the plain path in float64
     references = {PHI: {}, GRAN: {},
                   GEM: dict(n_layers=6, n_batch=1, window=128, optimizer=False),
-                  ZAMBA: dict(n_layers=7, n_batch=1, optimizer=False, oracle64=True)}
+                  ZAMBA: dict(n_layers=7, n_batch=1, optimizer=False, oracle64=True),
+                  XL: dict(n_layers=8, n_batch=1, optimizer=False),
+                  WH: dict(n_layers=4)}
     for arch, ref_kw in references.items():
         for name, phase in (("train reference", run_train_reference_phase),
                             ("train staged", run_train_staged_phase),

@@ -8,10 +8,12 @@ smallest (its own is 32).
 
 gemma3-12b's reduced config keeps a 32-slot ring on its local layers, so the
 48-token prompt wraps it (also at head dim 64); internvl2-2b puts 16 seeded
-patch embeddings before each prompt.
+patch embeddings before each prompt; xlstm-1.3b decodes from its recurrent
+state; whisper-tiny encodes 64 zero frames (the serve driver's
+``model_inputs``) and attends to them from every decoder layer.
 
 Run:  PYTHONPATH=src python examples/torch_serve_decode.py [--device cpu]
-      [--arch qwen3-moe-30b-a3b | gemma3-12b | internvl2-2b]
+      [--arch qwen3-moe-30b-a3b | gemma3-12b | internvl2-2b | xlstm-1.3b | whisper-tiny]
 """
 
 import argparse
@@ -22,7 +24,7 @@ import torch
 
 from repro_torch.configs import get_smoke
 from repro_torch.device import resolve_device
-from repro_torch.launch.serve import make_patch_embeds
+from repro_torch.launch.serve import model_inputs
 from repro_torch.models import build_model
 
 ap = argparse.ArgumentParser()
@@ -39,11 +41,8 @@ model = build_model(cfg)
 params = model.init(torch.Generator(device=dev).manual_seed(0))
 prompts = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT), device=dev,
                         generator=torch.Generator(device=dev).manual_seed(1))
-batch = {"tokens": prompts}
-n_prefix = 0
-if cfg.family == "vlm":
-    batch["patch_embeds"] = make_patch_embeds(cfg, BATCH, dev, 2)
-    n_prefix = cfg.n_patches
+batch = {"tokens": prompts, **model_inputs(cfg, BATCH, dev, 2)}
+n_prefix = cfg.n_patches if cfg.family == "vlm" else 0
 S_max = n_prefix + PROMPT + GEN
 
 

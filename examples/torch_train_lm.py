@@ -12,8 +12,11 @@ Run:  PYTHONPATH=src python examples/torch_train_lm.py --device cpu
       PYTHONPATH=src python examples/torch_train_lm.py --arch phi4-mini-3.8b --steps 20
       PYTHONPATH=src python examples/torch_train_lm.py --arch gemma3-12b --seq 48
       PYTHONPATH=src python examples/torch_train_lm.py --arch zamba2-7b
+      PYTHONPATH=src python examples/torch_train_lm.py --arch xlstm-1.3b
+      PYTHONPATH=src python examples/torch_train_lm.py --arch whisper-tiny
 (gemma3's reduced window is 32 slots, so ``--seq 48`` trains across it;
-zamba2's reduced chunk is 32, so the default 128 is four chunks.)
+zamba2's and xlstm's reduced chunk is 32, so the default 128 is four chunks;
+whisper's batches carry the zero frames the train driver adds.)
 """
 
 import argparse

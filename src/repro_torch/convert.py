@@ -8,9 +8,11 @@ holding bf16 arrays widens them to float32 first and passes ``dtype``.
 
 ``repro`` keeps some leaves in float32 whatever the config's dtype: Mamba2's
 ``dt_bias``, ``A_log`` and ``D`` (``src/repro/models/mamba2.py:mamba_init``),
-matched by leaf name, and the MoE router's weight (``moe_init``), matched by
-key path, since its leaf is called ``w`` like every dense weight. Those stay
-float32 when ``dtype`` asks for another type; the dense tree has none of them.
+matched by leaf name, and the MoE router's weight (``moe_init``) and the
+mLSTM's gate projection (``src/repro/models/xlstm.py:mlstm_init``), matched
+by key path, since their leaves are called ``w`` and ``b`` like every dense
+layer's. Those stay float32 when ``dtype`` asks for another type; the dense
+tree has none of them.
 
 ``train_state_from_numpy`` carries a whole ``repro`` ``TrainState`` across
 (params, the ``OptState``'s step, fp32 master, m and v, and the error-feedback
@@ -23,7 +25,7 @@ import numpy as np
 import torch
 
 FLOAT32_LEAVES = frozenset({"dt_bias", "A_log", "D"})     # by leaf name
-FLOAT32_PATHS = ("moe/router/w",)                         # by the end of the key path
+FLOAT32_PATHS = ("moe/router/w", "mlstm/w_gates/w", "mlstm/w_gates/b")   # by the path's end
 
 
 def keeps_float32(path: str) -> bool:

@@ -4,16 +4,20 @@ breakdown.
 Serving: builds the model (qwen3-14b by default, ``--arch zamba2-7b`` for
 the hybrid, ``--arch qwen3-moe-30b-a3b`` for MoE, ``--arch gemma3-12b
 --prompt-len 1536`` for the local/global pattern over a wrapped ring,
-``--arch internvl2-2b`` with seeded patch embeddings; all its layers, bf16,
-random weights from ``--seed``), warms up,
+``--arch internvl2-2b`` with seeded patch embeddings, ``--arch xlstm-1.3b``
+for the xLSTM, ``--arch whisper-tiny --prompt-len 416`` for the
+encoder-decoder with zero frames; all its layers, bf16, random weights from
+``--seed``), warms up,
 then profiles two windows separately: one batched prefill, and the greedy
 decode steps that follow it. Training (``--train``): phi4-mini-3.8b by
 default at full width with ``--layers`` layers (by default as
 ``chip_smoke.py`` trains it: phi4-mini 8, granite-moe-1b-a400m 24,
 gemma3-12b 6, one block of 5 local and 1 global, zamba2-7b 14, two groups
-and a tail of 2), bf16 params and fp32 AdamW state, ``--batch`` x ``--seq``
-tokens (4 x 2048), remat "full"; one warm-up step, then one profiled train
-step. For each window
+and a tail of 2, xlstm-1.3b 16, two blocks of 1 sLSTM and 7 mLSTM,
+whisper-tiny all 4 decoder layers and its 4 encoder layers), bf16 params
+and fp32 AdamW state, ``--batch`` x ``--seq`` tokens (4 x 2048;
+whisper-tiny's ``--seq`` defaults to its 448-token text context), remat
+"full"; one warm-up step, then one profiled train step. For each window
 it prints one JSON line: host-clock wall time without and with the profiler,
 device busy time (the union of kernel intervals) and idle share, and device
 time by category (the port's kernels, matrix products, sorts and top-k,
@@ -43,7 +47,7 @@ from torch.profiler import ProfilerActivity, profile
 from ..configs import get_config
 from ..device import resolve_device
 from ..models import build_model, moe
-from .serve import make_patch_embeds
+from .serve import model_inputs
 
 CATEGORIES = (
     ("flash_attention", re.compile(r"flash_fwd_kernel")),
@@ -122,7 +126,9 @@ def profile_window(fn, device: torch.device, top: int) -> dict:
 
 # --train's default depth a model
 TRAIN_LAYERS = {"phi4-mini-3.8b": 8, "granite-moe-1b-a400m": 24, "gemma3-12b": 6,
-                "zamba2-7b": 14}
+                "zamba2-7b": 14, "xlstm-1.3b": 16, "whisper-tiny": 4}
+# --train's default sequence length a model, where not 2048
+TRAIN_SEQ = {"whisper-tiny": 448}
 
 # functions of models/moe.py that moe_ffn calls, the ones that call no other first
 MOE_FUNCTIONS = ("route", "dispatch_plan", "load_balance_aux", "experts")
@@ -210,7 +216,7 @@ def main(argv=None) -> dict:
     ap.add_argument("--gen", type=int, default=32)
     ap.add_argument("--train", action="store_true", help="profile one train step")
     ap.add_argument("--batch", type=int, default=4)
-    ap.add_argument("--seq", type=int, default=2048)
+    ap.add_argument("--seq", type=int, default=None, help="with --train: TRAIN_SEQ's or 2048")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--top", type=int, default=12)
     args = ap.parse_args(argv)
@@ -219,6 +225,7 @@ def main(argv=None) -> dict:
     if args.train:
         args.arch = args.arch or "phi4-mini-3.8b"
         args.layers = args.layers or TRAIN_LAYERS.get(args.arch, 8)
+        args.seq = args.seq or TRAIN_SEQ.get(args.arch, 2048)
         return profile_train(args, dev)
     cfg = get_config(args.arch or "qwen3-14b")
     if args.layers:
@@ -228,9 +235,7 @@ def main(argv=None) -> dict:
     B, P, G = args.requests, args.prompt_len, args.gen
     prompts = torch.randint(0, cfg.vocab_size, (B, P), device=dev,
                             generator=torch.Generator(device=dev).manual_seed(args.seed + 1))
-    batch = {"tokens": prompts}
-    if cfg.family == "vlm":
-        batch["patch_embeds"] = make_patch_embeds(cfg, B, dev, args.seed + 2)
+    batch = {"tokens": prompts, **model_inputs(cfg, B, dev, args.seed + 2)}
     S_max = P + G + cfg.n_patches * (cfg.family == "vlm")
 
     def prefill():

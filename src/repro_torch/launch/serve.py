@@ -8,12 +8,16 @@ from there (modeled time reported), then requests are decoded with a KV
 cache. Prefill and decode run the port's kernels on the card.
 
 A VLM (internvl2-2b) is served with seeded patch embeddings in place of
-its vision frontend (``make_patch_embeds``), put before each prompt.
+its vision frontend (``make_patch_embeds``), put before each prompt; the
+Whisper encoder-decoder (whisper-tiny) with zero frame embeddings in place
+of its audio frontend (``make_frames``), as ``repro``'s driver feeds it.
+``model_inputs`` gives a family's extra inputs to every serving path.
 
 Run:  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-14b --requests 8
       (``--arch zamba2-7b`` for the Mamba2 hybrid, ``--arch gemma3-12b`` for
-      the local/global pattern, ``--arch internvl2-2b`` for the VLM; add
-      ``--device cpu`` to run the plain path on the CPU)
+      the local/global pattern, ``--arch internvl2-2b`` for the VLM,
+      ``--arch xlstm-1.3b`` for the xLSTM, ``--arch whisper-tiny`` for the
+      encoder-decoder; add ``--device cpu`` to run the plain path on the CPU)
 """
 
 from __future__ import annotations
@@ -56,12 +60,31 @@ def make_patch_embeds(cfg: ModelConfig, B: int, device, seed: int) -> torch.Tens
     return pe.to(dtype_of(cfg))
 
 
+def make_frames(cfg: ModelConfig, B: int, device) -> torch.Tensor:
+    """The encoder-decoder's stand-in for its audio frontend: zero frame
+    embeddings (B, encoder_seq, d_model), as ``repro``'s drivers feed them,
+    in the model's dtype."""
+    return torch.zeros((B, cfg.encoder_seq, cfg.d_model), dtype=dtype_of(cfg), device=device)
+
+
+def model_inputs(cfg: ModelConfig, B: int, device, seed: int) -> dict:
+    """What a family takes beside the prompts, as ``generate``'s keywords:
+    a VLM's seeded patch embeddings, the encoder-decoder's zero frames."""
+    if cfg.family == "vlm":
+        return {"patch_embeds": make_patch_embeds(cfg, B, device, seed)}
+    if cfg.family == "audio":
+        return {"frames": make_frames(cfg, B, device)}
+    return {}
+
+
 def generate(model: Model, params, prompts: torch.Tensor, gen: int,
-             patch_embeds: torch.Tensor | None = None) -> dict:
+             patch_embeds: torch.Tensor | None = None,
+             frames: torch.Tensor | None = None) -> dict:
     """Batched prefill of ``prompts`` (B, P), after ``patch_embeds`` (B,
-    n_patches, d) where given, then ``gen - 1`` greedy decode steps. Returns
-    the tokens (B, gen) and the host-clock times, each ending in a device
-    synchronise."""
+    n_patches, d) where given, with the encoder-decoder's ``frames`` (B,
+    encoder_seq, d) where given, then ``gen - 1`` greedy decode steps.
+    Returns the tokens (B, gen) and the host-clock times, each ending in a
+    device synchronise."""
     B, P = prompts.shape
     device = prompts.device
     batch = {"tokens": prompts}
@@ -69,6 +92,8 @@ def generate(model: Model, params, prompts: torch.Tensor, gen: int,
     if patch_embeds is not None:
         batch["patch_embeds"] = patch_embeds
         n_prefix = patch_embeds.shape[1]
+    if frames is not None:
+        batch["frames"] = frames
     _sync(device)
     t0 = time.perf_counter()
     logits, cache = model.prefill(params, batch, P + gen + n_prefix)
@@ -130,8 +155,7 @@ def serve(cfg: ModelConfig, *, requests: int = 8, prompt_len: int = 48, gen: int
         B, P, G = requests, prompt_len, gen
         prompts = torch.randint(0, cfg.vocab_size, (B, P), device=dev,
                                 generator=torch.Generator(device=dev).manual_seed(seed + 1))
-        pe = make_patch_embeds(cfg, B, dev, seed + 2) if cfg.family == "vlm" else None
-        res = generate(model, params, prompts, G, pe)
+        res = generate(model, params, prompts, G, **model_inputs(cfg, B, dev, seed + 2))
         log(f"[serve] {B} requests x {G} tokens: prefill {res['prefill_s']:.3f}s, "
             f"decode {res['decode_s']:.3f}s ({dev.type})")
     finally:

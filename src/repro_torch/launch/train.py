@@ -15,6 +15,8 @@ Run:  PYTHONPATH=src python -m repro_torch.launch.train   (granite-moe-1b-a400m)
       PYTHONPATH=src python -m repro_torch.launch.train --arch phi4-mini-3.8b
       PYTHONPATH=src python -m repro_torch.launch.train --arch gemma3-12b
       PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-7b
+      PYTHONPATH=src python -m repro_torch.launch.train --arch xlstm-1.3b
+      PYTHONPATH=src python -m repro_torch.launch.train --arch whisper-tiny
       (add ``--device cpu`` to run the plain path on the CPU)
 """
 
@@ -43,6 +45,7 @@ from ..models.layers import dtype_of
 from ..optim import AdamWConfig
 from ..optim.adamw import leaves
 from ..runtime import RuntimeConfig, TrainState, make_train_state, make_train_step
+from .serve import make_frames
 
 
 def tree_bytes(tree) -> int:
@@ -51,13 +54,17 @@ def tree_bytes(tree) -> int:
 
 def to_device(batch: dict, cfg: ModelConfig, device: torch.device) -> dict:
     """A Loader batch (numpy int32) -> int64 token tensors on ``device``. A
-    VLM's batch also takes its prefix, as repro's driver feeds it: zero
-    patch embeddings (B, n_patches, d_model), in the dtype the model takes
-    them in on the serve path."""
+    VLM's batch also takes its prefix and the encoder-decoder's its frames,
+    as repro's driver feeds them: zero patch embeddings (B, n_patches,
+    d_model), zero frame embeddings (B, encoder_seq, d_model), in the dtype
+    the model takes them in on the serve path."""
     out = {k: torch.from_numpy(v).to(device=device, dtype=torch.long) for k, v in batch.items()}
+    B = out["tokens"].shape[0]
     if cfg.family == "vlm":
-        out["patch_embeds"] = torch.zeros((out["tokens"].shape[0], cfg.n_patches, cfg.d_model),
+        out["patch_embeds"] = torch.zeros((B, cfg.n_patches, cfg.d_model),
                                           dtype=dtype_of(cfg), device=device)
+    if cfg.family == "audio":
+        out["frames"] = make_frames(cfg, B, device)
     return out
 
 
@@ -151,8 +158,8 @@ def main(argv=None) -> dict:
         description="Train on the card through the provisioned burst tier. The default "
                     "--arch is repro's, granite-moe-1b-a400m (MoE); qwen3-moe-30b-a3b "
                     "(MoE), phi4-mini-3.8b, qwen3-14b and qwen2.5-32b (dense), gemma3-12b "
-                    "(local/global attention, head dim 256) and zamba2-7b (Mamba2 hybrid) "
-                    "also train.")
+                    "(local/global attention, head dim 256), zamba2-7b (Mamba2 hybrid), "
+                    "xlstm-1.3b (xLSTM) and whisper-tiny (encoder-decoder) also train.")
     ap.add_argument("--arch", default="granite-moe-1b-a400m")
     ap.add_argument("--smoke", action="store_true", default=True)
     ap.add_argument("--full", dest="smoke", action="store_false")

@@ -14,7 +14,11 @@ position ``pos`` its filled slots are exactly the keys in (pos - W, pos]:
 the decode kernel reads them as a cache of ``min(pos + 1, W)`` rows.
 ``repro`` reaches the same key set by masking with the slots' positions.
 
-Not ported yet: ``kv_override`` (cross-attention, whisper), which raises.
+Cross-attention (``kv_override``, Whisper's decoder) takes q from x and
+the given encoder k/v, without RoPE, qk-norm on k or a cache, non-causal:
+``ops.flash_attention(causal=False)`` over S queries and T keys, and at one
+query row without autograd (decode) ``ops.decode_attention`` over all T
+keys (``kv_len`` = T, a device int32 made on the device).
 """
 
 from __future__ import annotations
@@ -163,13 +167,23 @@ def attention(
         window: with position p at slot p % W those rows are the keys in
         (cache_pos - W, cache_pos], the set ``repro`` picks from
         ``kv_positions``. Nothing is read back to the host.
+      * cross-attention: ``kv_override=(k, v)`` (B, T, K, hd) skips rope,
+        the cache and the causal mask; returns (out, None).
     """
-    if kv_override is not None:
-        raise NotImplementedError("cross-attention (kv_override) is not ported yet")
-
     B, S, d = x.shape
     H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     q = dense(p["wq"], x).reshape(B, S, H, hd)
+    if kv_override is not None:
+        if cfg.qk_norm:
+            q = head_rmsnorm(p["q_norm"], q, cfg.norm_eps)
+        k, v = kv_override
+        if S == 1 and not torch.is_grad_enabled():
+            kv_len = torch.full((), k.shape[1], dtype=torch.int32, device=k.device)
+            out = ops.decode_attention(q, k, v, kv_len=kv_len)
+        else:
+            out = ops.flash_attention(q, k, v, causal=False)
+        return dense(p["wo"], out.reshape(B, S, H * hd)), None
+
     k = dense(p["wk"], x).reshape(B, S, K, hd)
     v = dense(p["wv"], x).reshape(B, S, K, hd)
 

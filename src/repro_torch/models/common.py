@@ -19,6 +19,16 @@ def tree_map(fn: Callable, tree, *rest):
     return fn(tree, *rest)
 
 
+def unstack(tree, n: int) -> list:
+    """Stacked params (leading dim ``n``) -> ``n`` per-layer trees of views,
+    from one ``unbind`` a leaf (whose backward stacks the per-layer grads
+    once, where indexing each layer would scatter into a zero stack)."""
+    if isinstance(tree, dict):
+        per = {k: unstack(v, n) for k, v in tree.items()}
+        return [{k: per[k][i] for k in per} for i in range(n)]
+    return list(tree.unbind(0))
+
+
 def stack_init(gen: torch.Generator, n: int, fn: Callable):
     """``fn(gen) -> params`` called ``n`` times -> params stacked on a leading
     dim of ``n`` (the JAX version vmaps over ``n`` keys). Each layer is written

@@ -1,5 +1,7 @@
-"""Family dispatch: build a Model from a ModelConfig (dense with gemma3's
-local/global pattern, MoE, VLM and hybrid so far)."""
+"""Family dispatch: build a Model from a ModelConfig. Every family that
+``repro`` builds is built here: dense (with gemma3's local/global
+pattern), MoE and VLM through ``transformer``, the Mamba2 hybrid, the xLSTM
+(``"ssm"``) and the Whisper encoder-decoder (``"audio"``)."""
 
 from __future__ import annotations
 
@@ -11,7 +13,13 @@ def build_model(cfg: ModelConfig) -> Model:
     if cfg.family == "hybrid":
         from . import hybrid
         return hybrid.build(cfg)
+    if cfg.family == "ssm":
+        from . import xlstm_model
+        return xlstm_model.build(cfg)
+    if cfg.family == "audio":
+        from . import encdec
+        return encdec.build(cfg)
     if cfg.family not in ("dense", "moe", "vlm"):
-        raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
+        raise ValueError(f"unknown family {cfg.family!r}")
     from . import transformer
     return transformer.build(cfg)

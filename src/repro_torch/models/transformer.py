@@ -34,7 +34,7 @@ import torch
 
 from ..configs.base import ModelConfig
 from .attention import KVCache, attention, attn_init
-from .common import Model, remat_wrap, stack_init, tree_map
+from .common import Model, remat_wrap, stack_init, tree_map, unstack
 from .layers import (
     cross_entropy_loss,
     dtype_of,
@@ -85,14 +85,6 @@ def _layer_apply(lp, x, cfg: ModelConfig, *, positions, theta: float,
     else:
         m, aux = swiglu(lp["mlp"], y), 0.0
     return x + m, kv, aux
-
-
-def _unstack(tree, n: int) -> list:
-    """Stacked params (leading dim ``n``) -> ``n`` per-layer trees of views."""
-    if isinstance(tree, dict):
-        per = {k: _unstack(v, n) for k, v in tree.items()}
-        return [{k: per[k][i] for k in per} for i in range(n)]
-    return list(tree.unbind(0))
 
 
 # ---------------------------------------------------------------------------
@@ -147,14 +139,14 @@ def _layers(params, cfg: ModelConfig):
     R local layers (``rope_theta``, the window) then one global layer
     (``global_rope_theta``, no window) in each of the G blocks."""
     if not cfg.local_global_ratio:
-        for i, lp in enumerate(_unstack(params["layers"], cfg.n_layers)):
+        for i, lp in enumerate(unstack(params["layers"], cfg.n_layers)):
             yield ("layer", i), lp, cfg.rope_theta, cfg.sliding_window
         return
     R, G = _blocks(cfg)
     g_theta = cfg.global_rope_theta or cfg.rope_theta
-    blocks = zip(_unstack(params["local_layers"], G), _unstack(params["global_layers"], G))
+    blocks = zip(unstack(params["local_layers"], G), unstack(params["global_layers"], G))
     for g, (lps, gp) in enumerate(blocks):
-        for r, lp in enumerate(_unstack(lps, R)):
+        for r, lp in enumerate(unstack(lps, R)):
             yield ("local", g, r), lp, cfg.rope_theta, cfg.sliding_window
         yield ("global", g), gp, g_theta, None
 

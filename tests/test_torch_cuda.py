@@ -17,7 +17,10 @@ smoke internvl2 on the card against the CPU; the SSD intra-chunk backward
 kernel against its plain version in float64, alone and through
 ``ops.ssd_intra_chunk``'s autograd Function; rmsnorm's backward at the
 gemma3 and zamba2 training shapes, one launch and two; one gemma3 block and
-one zamba2 group training on the card against the CPU. Every test here
+one zamba2 group training on the card against the CPU; Whisper's attention
+cases (non-causal, S queries against T keys, T 1500) in the flash forward,
+lse and backward and the decode kernel, and the smoke xLSTM and Whisper
+serving and training on the card against the CPU. Every test here
 carries the ``cuda`` marker and skips without a card. The file imports no JAX,
 so it runs where only PyTorch is installed:
 
@@ -639,3 +642,141 @@ def test_local_global_and_vlm_on_card_match_cpu(cuda_card, arch, prompt):
                     None if pe is None else pe.cpu())
     assert _rel_err(card["last_logits"].cpu(), host["last_logits"]) < 1e-4
     assert torch.equal(card["tokens"].cpu(), host["tokens"])
+
+
+# -- Whisper's attention cases and the xLSTM / Whisper models on the card ---------------
+@ATTN_DTYPE
+@pytest.mark.parametrize("S,T,H,K", [
+    (1500, 1500, 6, 6),     # whisper-tiny's encoder: S = T = 1500, off every tile
+    (416, 1500, 6, 6),      # its cross-attention when serving (prompt 416)
+    (448, 1500, 6, 6),      # and when training (its 448-token text context)
+    (1, 1500, 6, 6),        # one query row
+    (17, 300, 6, 2),        # ragged S and T, GQA
+    (300, 65, 4, 2),        # more queries than keys
+    (129, 257, 6, 3),       # a second kv tile of one key, S and T ragged
+])
+def test_flash_noncausal_and_cross_lengths_on_card(cuda_card, S, T, H, K, dtype):
+    """Non-causal flash attention with S queries against T keys at hd 64,
+    forward, lse and backward, against the plain versions (the forward at
+    2e-5 / 2e-2, the lse at 1e-5, the grads at 1e-4 / 2e-2 of max|grad|)."""
+    td, tol = DTYPES[dtype], TOL[dtype]
+    q, k, v, do = _card_inputs(cuda_card, [(2, S, H, 64), (2, T, K, 64), (2, T, K, 64),
+                                           (2, S, H, 64)], td, 17)
+    o, lse = flash_attention_cuda(q, k, v, causal=False, return_lse=True)
+    torch.testing.assert_close(o, flash_attention_plain(q, k, v, causal=False),
+                               atol=tol, rtol=tol)
+    want_lse = flash_attention_lse_plain(q, k, causal=False)
+    assert _rel_err(lse, want_lse) < 1e-5
+    o = flash_attention_plain(q, k, v, causal=False).contiguous()
+    got = flash_attention_bwd_cuda(q, k, v, o, want_lse, do, causal=False)
+    want = flash_attention_bwd_plain(q, k, v, o, want_lse, do, causal=False)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == td and g.shape == w.shape
+        assert _rel_err(g, w) < GRAD_TOL[dtype], name
+
+
+@ATTN_DTYPE
+def test_ops_autograd_noncausal_cross_on_card(cuda_card, dtype):
+    """``ops.flash_attention(causal=False)`` under autograd with S != T: one
+    forward and one backward launch, the grads against autograd through the
+    plain version widened to float32."""
+    td = DTYPES[dtype]
+    q, k, v = _card_inputs(cuda_card, [(2, 448, 6, 64), (2, 1500, 6, 64), (2, 1500, 6, 64)],
+                           td, 18)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    plain = [t.float().requires_grad_() for t in (q, k, v)]
+    ops.reset_launches()
+    ops.flash_attention(*leaves, causal=False).float().square().sum().backward()
+    assert ops.LAUNCHES == {**dict.fromkeys(ops.KERNELS, 0), "flash_attention": 1,
+                            "flash_attention_bwd": 1}
+    flash_attention_plain(*plain, causal=False).float().square().sum().backward()
+    for a, b in zip(leaves, plain):
+        assert _rel_err(a.grad, b.grad) < GRAD_TOL[dtype]
+
+
+@ATTN_DTYPE
+@pytest.mark.parametrize("kv_len", [1500, 1499, 37])
+def test_decode_kernel_whisper_cross_on_card(cuda_card, kv_len, dtype):
+    """The decode kernel over whisper-tiny's 1500 encoder keys (B 8, 6 heads
+    of 64): all of them, as the cross-attention reads them, and a prefix."""
+    td, tol = DTYPES[dtype], TOL[dtype]
+    q, k, v = _card_inputs(cuda_card, [(8, 1, 6, 64), (8, 1500, 6, 64), (8, 1500, 6, 64)],
+                           td, 19)
+    kl = torch.tensor(kv_len, dtype=torch.int32, device=cuda_card)
+    torch.testing.assert_close(decode_attention_cuda(q, k, v, kv_len=kl),
+                               decode_attention_plain(q, k, v, kv_len=kl), atol=tol, rtol=tol)
+
+
+def _smoke64(arch):
+    import dataclasses
+
+    from repro_torch.configs import get_smoke
+    return dataclasses.replace(get_smoke(arch), head_dim=64)
+
+
+@pytest.mark.parametrize("arch,prompt", [("xlstm-1.3b", 40), ("xlstm-1.3b", 2),
+                                         ("whisper-tiny", 24)])
+def test_xlstm_and_whisper_serve_on_card_match_cpu(cuda_card, arch, prompt):
+    """The smoke xLSTM (a prompt padding its second chunk, and one shorter
+    than the conv's W-1 rows) and the smoke whisper with seeded frames, head
+    dim 64, float32: prefill and 4 decode steps on the card against the
+    CPU's plain path on the same weights, 1e-4 of max|logit| and equal
+    greedy tokens; the launches each path implies."""
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import build_model
+    from repro_torch.models.common import tree_map
+    cfg = _smoke64(arch)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=cuda_card).manual_seed(0))
+    g = torch.Generator(device=cuda_card).manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (2, prompt), device=cuda_card, generator=g)
+    kw = {}
+    if cfg.family == "audio":
+        kw["frames"] = 0.1 * torch.randn((2, cfg.encoder_seq, cfg.d_model), device=cuda_card,
+                                         generator=g)
+    ops.reset_launches()
+    card = generate(model, params, toks, 5, **kw)
+    L = cfg.n_layers
+    if cfg.family == "audio":
+        norms = (2 * cfg.encoder_layers + 1) + (3 * L + 1) * 5
+        want = {"flash_attention": cfg.encoder_layers + 2 * L, "decode_attention": 2 * L * 4}
+    else:
+        nb = L // cfg.slstm_period
+        norms = (3 * nb + 2 * nb * (cfg.slstm_period - 1) + 1) * 5
+        want = {}
+    assert ops.LAUNCHES == {**dict.fromkeys(ops.KERNELS, 0), "rmsnorm": norms, **want}
+    host = generate(model, tree_map(lambda t: t.cpu(), params), toks.cpu(), 5,
+                    **{k: v.cpu() for k, v in kw.items()})
+    assert _rel_err(card["last_logits"].cpu(), host["last_logits"]) < 1e-4
+    assert torch.equal(card["tokens"].cpu(), host["tokens"])
+
+
+@pytest.mark.parametrize("arch", ["xlstm-1.3b", "whisper-tiny"])
+def test_xlstm_and_whisper_train_on_card_match_cpu(cuda_card, arch):
+    """The smoke xLSTM and whisper (seeded frames) at head dim 64, float32,
+    B 2, S 48 (two xLSTM chunks of 32, the second padded): loss and every
+    grad leaf of the card's kernel path (remat "full") against the CPU
+    plain path, 1e-4 and 1e-4 of max|g|; the backward kernels launched."""
+    from repro_torch.models import build_model
+    from repro_torch.models.common import tree_map
+    from repro_torch.optim.adamw import leaves
+    from repro_torch.runtime import loss_and_grads
+    cfg = _smoke64(arch)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=cuda_card).manual_seed(0))
+    g = torch.Generator(device=cuda_card).manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (2, 49), device=cuda_card, generator=g)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    if cfg.family == "audio":
+        batch["frames"] = 0.1 * torch.randn((2, cfg.encoder_seq, cfg.d_model),
+                                            device=cuda_card, generator=g)
+    ops.reset_launches()
+    loss, _, grads = loss_and_grads(model, params, batch, remat="full")
+    bwd = ["rmsnorm_bwd"] + (["flash_attention_bwd"] if cfg.family == "audio" else [])
+    assert all(ops.LAUNCHES[k] > 0 for k in bwd), ops.LAUNCHES
+    cpu = tree_map(lambda t: t.detach().cpu(), params)
+    host_loss, _, host_grads = loss_and_grads(model, cpu, {k: v.cpu() for k, v in batch.items()},
+                                              remat="full")
+    assert abs(float(loss) - float(host_loss)) < 1e-4
+    for a, b in zip(leaves(grads), leaves(host_grads)):
+        assert _rel_err(a.cpu(), b) < 1e-4

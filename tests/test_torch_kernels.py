@@ -65,6 +65,51 @@ def test_flash_attention_plain_matches_pallas(B, S, H, K, hd, T, window, dtype):
 
 @jax_only
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,H,K,hd,T", [
+    (2, 128, 4, 2, 64, 256),           # the cross-attention's S != T
+    (2, 128, 6, 6, 64, 128),           # the encoder's S = T, MHA (whisper's 6 heads)
+    (1, 64, 4, 1, 32, 192),            # MQA, more keys than queries
+])
+def test_flash_attention_plain_noncausal_matches_pallas(B, S, H, K, hd, T, dtype):
+    """Whisper's cases: non-causal, and S queries against T keys."""
+    from repro.kernels import ops, ref
+    (q, k, v), (tq, tk, tv) = _inputs(4, [(B, S, H, hd), (B, T, K, hd), (B, T, K, hd)], dtype)
+    got = flash_attention_plain(tq, tk, tv, causal=False)
+    pallas = ops.flash_attention(q, k, v, causal=False, block_q=64, block_k=64)
+    oracle = ref.flash_attention_ref(q, k, v, causal=False)
+    _close(got, pallas, oracle, dtype=dtype)
+
+
+@jax_only
+@pytest.mark.parametrize("S,T", [(128, 256), (40, 64), (64, 64)])
+def test_flash_attention_bwd_plain_noncausal_matches_jax_grad(S, T):
+    """The explicit backward, non-causal with S != T, against jax.grad
+    through ``repro.kernels.ref.flash_attention_ref`` (float32, GQA G 2):
+    each of dq, dk, dv within 1e-5 of its max; the lse against the log-sum-exp
+    of the reference's scores."""
+    import jax
+    from repro.kernels import ref
+    from repro_torch.kernels.flash_attention import (flash_attention_bwd_plain,
+                                                     flash_attention_lse_plain)
+    B, H, K, hd = 2, 4, 2, 32
+    (q, k, v, do), (tq, tk, tv, tdo) = _inputs(
+        8, [(B, S, H, hd), (B, T, K, hd), (B, T, K, hd), (B, S, H, hd)], "float32")
+    out, vjp = jax.vjp(lambda a, b, c: ref.flash_attention_ref(a, b, c, causal=False), q, k, v)
+    want = vjp(do)
+    lse = flash_attention_lse_plain(tq, tk, causal=False)
+    s = jnp.einsum("bskgd,btkd->bkgst", q.reshape(B, S, K, H // K, hd), k) * hd ** -0.5
+    np.testing.assert_allclose(lse.numpy(), np.asarray(jax.nn.logsumexp(s, -1)).reshape(B, H, S),
+                               atol=1e-5, rtol=1e-5)
+    got = flash_attention_bwd_plain(tq, tk, tv, torch.from_numpy(np.array(out)), lse, tdo,
+                                    causal=False)
+    for g, w in zip(got, want, strict=True):
+        w = np.asarray(w)
+        assert g.shape == w.shape
+        assert np.max(np.abs(g.numpy() - w)) / np.max(np.abs(w)) < 1e-5
+
+
+@jax_only
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("kv_len", [37, 128])
 def test_decode_attention_plain_matches_pallas_hd256(kv_len, dtype):
     """gemma3's head dim over a 128-slot ring, partly filled and full."""

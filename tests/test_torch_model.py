@@ -150,11 +150,32 @@ def test_sdpa_matches_repro_masks(window):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5, rtol=2e-5)
 
 
-def test_build_model_refuses_unported_families():
+def _port_arch_ids():
+    from repro_torch.configs import ARCH_IDS
+    return ARCH_IDS
+
+
+@pytest.mark.parametrize("arch", _port_arch_ids())
+def test_build_model_refuses_unported_families(arch):
+    """No family is left to refuse: ``build_model`` builds every arch of the
+    port's registry, through its family's module, and the smoke model
+    prefills a short prompt (with the family's extra inputs) to finite
+    logits over the padded vocab."""
     from repro_torch.configs import get_smoke as port_smoke
-    for arch in ("whisper-tiny", "xlstm-1.3b"):
-        with pytest.raises(NotImplementedError):
-            build_model(port_smoke(arch))
+    from repro_torch.launch.serve import model_inputs
+    family_module = {"hybrid": "hybrid", "ssm": "xlstm_model", "audio": "encdec"}
+    cfg = port_smoke(arch)
+    model = build_model(cfg)
+    assert model.cfg is cfg
+    assert model.prefill.func.__module__ == \
+        f"repro_torch.models.{family_module.get(cfg.family, 'transformer')}"
+    params = model.init(torch.Generator().manual_seed(0))
+    toks = torch.randint(0, cfg.vocab_size, (1, 5), generator=torch.Generator().manual_seed(1))
+    n_prefix = cfg.n_patches if cfg.family == "vlm" else 0
+    logits, cache = model.prefill(params, {"tokens": toks, **model_inputs(cfg, 1, "cpu", 2)},
+                                  n_prefix + 8)
+    assert logits.shape == (1, cfg.padded_vocab) and bool(torch.isfinite(logits).all())
+    assert int(cache["pos"]) == n_prefix + 5
 
 
 def test_build_model_builds_the_hybrid():

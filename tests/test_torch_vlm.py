@@ -8,8 +8,8 @@ repro's ``use_kernels`` on (Pallas interpret mode) and off; decode against
 the port's own full forward; the serve driver on the CPU for both new
 families; the train driver and ``launch.profile --train`` feeding every
 batch a prefix of zero patch embeddings, as repro's train driver does, and
-the loss on such a batch against repro's; the families ``build_model``
-still refuses."""
+the loss on such a batch against repro's; the audio and ssm families,
+which ``build_model`` once refused, built."""
 
 import pytest
 
@@ -269,6 +269,25 @@ def test_loss_on_the_train_drivers_batch_matches_repro(pair, use_kernels):
 
 @pytest.mark.parametrize("arch", ["whisper-tiny", "xlstm-1.3b"])
 def test_build_model_still_refuses_audio_and_ssm(arch):
+    """The two families this test once found refused are ported now:
+    ``build_model`` builds each through its own module, and its init gives
+    repro's param tree (the full checks: tests/test_torch_encdec.py and
+    tests/test_torch_xlstm.py)."""
     from repro_torch.configs import get_smoke as port_smoke
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        build_model(port_smoke(arch))
+    cfg = port_smoke(arch)
+    model = build_model(cfg)
+    assert model.prefill.func.__module__.rsplit(".", 1)[-1] == \
+        {"audio": "encdec", "ssm": "xlstm_model"}[cfg.family]
+    jparams = jax.eval_shape(jax_build_model(get_smoke(arch)).init, jax.random.PRNGKey(0))
+    want = {"/".join(str(getattr(p, "key", p)) for p in path): leaf.shape
+            for path, leaf in jax.tree_util.tree_flatten_with_path(jparams)[0]}
+    got = {}
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, f"{path}/{k}" if path else k)
+        else:
+            got[path] = tuple(node.shape)
+    walk(model.init(torch.Generator().manual_seed(0)), "")
+    assert got == want

@@ -34,7 +34,9 @@ def make_batch(cfg, B: int, S: int, seed: int = 3) -> dict:
 
 
 def torch_batch(batch: dict) -> dict:
-    return {k: torch.from_numpy(v).long() for k, v in batch.items()}
+    """Token arrays as int64 tensors, float arrays (frames) as they are."""
+    return {k: torch.from_numpy(v).long() if np.issubdtype(v.dtype, np.integer)
+            else torch.from_numpy(v) for k, v in batch.items()}
 
 
 def jax_batch(batch: dict) -> dict:

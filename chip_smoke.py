@@ -10,7 +10,8 @@ Phases, each printing one JSON line to stdout:
              internvl2-2b, xlstm-1.3b (its norms) and whisper-tiny (the
              encoder's non-causal attention over 1500 frames, the
              cross-attention's 416 or 448 queries against 1500 keys, decode
-             over the 1500 keys) serving paths and the phi4-mini-3.8b and
+             over the 1500 keys; the decode kernel's per-row lse at
+             qwen3-14b's and gemma3's global shapes) serving paths and the phi4-mini-3.8b and
              granite-moe-1b-a400m, gemma3-12b (hd 256, window 1024), zamba2-7b,
              xlstm-1.3b and whisper-tiny training paths give it: bf16 (tolerance 2e-2) and
              float32 (2e-5, TF32 off); ssd_intra_chunk float32 only, 2e-4 on y
@@ -78,9 +79,17 @@ Phases, each printing one JSON line to stdout:
              S 2048, and whisper-tiny (all layers, zero frames) at B 4, S 448,
              remat "full": a warm-up step, then 5 timed steps on Loader
              batches
-  kernels    per kernel: launches in every staged, full and training run,
-             error, times, bound; each run's launch counts must equal what its
-             path implies (MoE launches the same kernels as dense)
+  mesh       the mesh steps (``runtime.parallel.shard_*``) on an NCCL
+             world of 1 in this process, mesh (data 1, model 1), everything a
+             DTensor and the kernels on local shards: qwen3-14b at all 40
+             layers served (B 8, prompt 512, 32 greedy tokens) and
+             phi4-mini-3.8b (8 of 32 layers, B 4, S 2048, bf16 params, fp32
+             AdamW, ZeRO-1, remat "full") trained 3 steps, each beside the
+             same run through the one-device steps: tokens equal, losses
+             within 1e-3, the kernels' launches equal; the times side by side
+  kernels    per kernel: launches in every staged, full, training and mesh
+             run, error, times, bound; each run's launch counts must equal
+             what its path implies (MoE launches the same kernels as dense)
 
 Then the card's name and power limit, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before that.
@@ -119,6 +128,7 @@ QMOE, GRAN = "qwen3-moe-30b-a3b", "granite-moe-1b-a400m"
 GEM, INTERN = "gemma3-12b", "internvl2-2b"
 XL, WH = "xlstm-1.3b", "whisper-tiny"
 GEM_LOCAL = GEM + " local"                 # gemma3's local layers' kernel shapes
+QWEN_LSE = QWEN + " lse"                   # the decode kernel with its lse output
 # whisper's attention and xlstm's norms: each its own kernel shape
 WH_ENC, WH_CROSS = WH + " encoder", WH + " cross"
 XL_INNER = XL + " d_inner"
@@ -495,7 +505,12 @@ def kernel_cases(torch):
                       # encoder keys; the self-attention's cache mid-way
                       (6, 6, 64, WH_FRAMES, WH_FRAMES, None, WH_CROSS),
                       (6, 6, 64, 416 + GEN, 416 + GEN // 2, None, WH)]
-    for H, K, hd, T, kv_len, window, main in decode_shapes:
+    # the per-row lse the sequence-sharded decode merges by: qwen3-14b's and
+    # gemma3's global layers' shapes
+    decode_shapes += [(40, 8, 128, T, mid, None, QWEN_LSE, True),
+                      (16, 8, 256, 1536 + GEN, 1537, None, None, True)]
+    for H, K, hd, T, kv_len, window, main, *lse in decode_shapes:
+        lse = bool(lse)
         def make(dtype, H=H, K=K, hd=hd, T=T, kv_len=kv_len, window=window):
             g = torch.Generator(device=dev).manual_seed(1)
             a = {"q": randn(g, (B, 1, H, hd), dtype), "k": randn(g, (B, T, K, hd), dtype),
@@ -510,15 +525,15 @@ def kernel_cases(torch):
         cases.append(dict(
             kernel="decode_attention",
             desc={"B": B, "T": T, "H": H, "K": K, "hd": hd, "kv_len": kv_len,
-                  "window": window},
-            make=make,
-            run=lambda a: decode_attention_cuda(a["q"], a["k"], a["v"], kv_len=a["kv_len"],
-                                                window=a["window"]),
-            plain=lambda a: decode_attention_plain(a["q"], a["k"], a["v"],
-                                                   kv_len=a["kv_len"], window=a["window"]),
+                  "window": window, **({"lse": True} if lse else {})},
+            make=make, n_out=2 if lse else 1,
+            run=lambda a, lse=lse: decode_attention_cuda(
+                a["q"], a["k"], a["v"], kv_len=a["kv_len"], window=a["window"], return_lse=lse),
+            plain=lambda a, lse=lse: decode_attention_plain(
+                a["q"], a["k"], a["v"], kv_len=a["kv_len"], window=a["window"], return_lse=lse),
             library=lambda a: F.scaled_dot_product_attention(a["lq"], a["lk"], a["lv"]),
-            nbytes=lambda isz, v=valid, H=H, K=K, hd=hd: (2 * B * H * hd
-                                                          + 2 * B * v * K * hd) * isz,
+            nbytes=lambda isz, v=valid, H=H, K=K, hd=hd, lse=lse: (
+                (2 * B * H * hd + 2 * B * v * K * hd) * isz + 4 * B * H * lse),
             flops=4 * B * H * hd * valid, main=main))
 
     # ssd_intra_chunk: the sweep of tests/test_kernels.py:68-72 and the
@@ -626,7 +641,7 @@ def run_kernel_phase(torch) -> dict:
                 tols = (GRAD_TOL[dtype_name],)
                 err, ok = compare_grads(torch, out, want, tols[0])
             else:
-                tols = case.get("tols", (TOL[dtype_name],))
+                tols = case.get("tols", (TOL[dtype_name],) * case.get("n_out", 1))
                 err, ok = compare(torch, out, want, tols)
             extra = {"lse_rel_err": a["lse_err"]} if "lse_err" in a else {}
             if "lse_err" in a and not a["lse_err"] < 1e-5:
@@ -1186,6 +1201,173 @@ def run_train_full_phase(torch, arch: str) -> dict:
     return got
 
 
+# -- the mesh phase ------------------------------------------------------------
+MESH_TRAIN_STEPS = 3
+MESH_SERVE_KERNELS = ("decode_attention", "flash_attention", "rmsnorm")
+MESH_TRAIN_KERNELS = ("rmsnorm", "flash_attention", "rmsnorm_bwd", "flash_attention_bwd")
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def _full(t):
+    return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+
+def run_mesh_phase(torch) -> dict:
+    """The mesh steps (``runtime.parallel.shard_*``) in this process
+    on an NCCL world of 1, mesh (data 1, model 1): params, caches, batches
+    and optimizer state are DTensors, the kernels run on local shards. Each
+    run is held to the same run through the one-device steps: qwen3-14b
+    at all 40 layers served (tokens and kernel launches equal), phi4-mini-3.8b
+    (8 of 32 layers) trained 3 steps with ZeRO-1 (losses within 1e-3, the
+    forward and backward kernels' launches equal). The times are printed
+    beside the one-device ones: DTensor's cost on the host."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_smoke_mesh
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{_free_port()}",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_smoke_mesh(1, 1, "cuda")
+        got = {"mesh serve " + QWEN: _mesh_serve(torch, mesh)}
+        torch.cuda.empty_cache()
+        got["mesh train " + PHI] = _mesh_train(torch, mesh)
+    finally:
+        dist.destroy_process_group()
+    return got
+
+
+def _mesh_serve(torch, mesh) -> dict:
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import build_model
+    from repro_torch.runtime import RuntimeConfig, distribute_tree, shard_decode_step, \
+        shard_prefill
+    cfg = get_config(QWEN)
+    model = build_model(cfg)
+    dev = torch.device("cuda")
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    prompts = torch.randint(0, cfg.vocab_size, (B, PROMPT), device=dev,
+                            generator=torch.Generator(device=dev).manual_seed(1))
+    generate(model, params, prompts, 2)                     # warm-up
+    ops.reset_launches()
+    ref = generate(model, params, prompts, GEN)
+    ref_launches = dict(ops.LAUNCHES)
+
+    S_max, rt = PROMPT + GEN, RuntimeConfig()
+    batch = {"tokens": prompts}
+    cache_like = model.init_cache(B, S_max, "meta")
+    prefill, p_sh, _, c_sh = shard_prefill(model, mesh, rt, S_max, params, batch, cache_like)
+    decode, _, _, _ = shard_decode_step(model, mesh, rt, params, cache_like,
+                                        {"token": prompts[:, 0]})
+    dparams = distribute_tree(mesh, params, p_sh)
+
+    def sharded_generate(gen: int) -> dict:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = prefill(dparams, batch)
+        tok = _full(logits).argmax(-1)
+        out = [tok]
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(gen - 1):
+            logits, cache = decode(dparams, cache, {"token": tok})
+            tok = _full(logits).argmax(-1)
+            out.append(tok)
+        torch.cuda.synchronize()
+        return {"tokens": torch.stack(out, dim=1), "prefill_s": t1 - t0,
+                "decode_s": time.perf_counter() - t1,
+                "cache": [repr(p) for p in cache["k"].placements]}
+
+    sharded_generate(2)                                     # warm-up
+    ops.reset_launches()
+    res = sharded_generate(GEN)
+    got = dict(ops.LAUNCHES)
+    same = bool(torch.equal(res["tokens"], ref["tokens"]))
+    steps = GEN - 1
+    emit({"phase": "mesh", "run": "serve", "cfg": f"{QWEN} {cfg.n_layers} layers bf16",
+          "mesh": {"data": 1, "model": 1}, "backend": "nccl", "B": B, "prompt": PROMPT,
+          "gen": GEN, "tokens_equal": same, "cache_placements": res["cache"],
+          "prefill_ms": res["prefill_s"] * 1e3, "prefill_ms_unsharded": ref["prefill_s"] * 1e3,
+          "decode_ms_per_step": res["decode_s"] / steps * 1e3,
+          "decode_ms_per_step_unsharded": ref["decode_s"] / steps * 1e3,
+          "launches": got, "launches_unsharded": ref_launches})
+    check_output(res["tokens"], cfg.padded_vocab, (B, GEN))
+    if not same:
+        raise AssertionError("mesh serve: the sharded tokens differ from the one-device run's")
+    for name in MESH_SERVE_KERNELS:
+        if got[name] != ref_launches[name] or not got[name]:
+            raise AssertionError(f"mesh serve: {name} launched {got[name]} times, "
+                                 f"{ref_launches[name]} on one device")
+    check_launches(got, expected_launches(cfg, GEN), f"mesh serve {QWEN}")
+    del params, dparams
+    return got
+
+
+def _mesh_train(torch, mesh) -> dict:
+    from repro_torch.configs import get_config
+    from repro_torch.data import DatasetSpec, Loader
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import to_device
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime import RuntimeConfig, distribute_tree, make_train_state, \
+        make_train_step, shard_train_step
+    full = get_config(PHI)
+    cfg = dataclasses.replace(full, n_layers=TRAIN_LAYERS[PHI])
+    model = build_model(cfg)
+    rt = RuntimeConfig(remat="full", zero1=True, opt=AdamWConfig(lr=1e-4), schedule="constant")
+    dev = torch.device("cuda")
+    loader = Loader(DatasetSpec(seed=7, vocab=cfg.vocab_size, n_tokens=1 << 24),
+                    batch=TRAIN_B, seq=TRAIN_S)
+    batches = [to_device(loader.batch_at(i), cfg, dev) for i in range(MESH_TRAIN_STEPS)]
+
+    def run(step, state) -> tuple[list, list, dict]:
+        ops.reset_launches()
+        losses, times = [], []
+        for b in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, b)
+            losses.append(float(_full(m["loss"])))
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return losses, times, dict(ops.LAUNCHES)
+
+    state = make_train_state(model, torch.Generator(device=dev).manual_seed(0), rt)
+    ref_losses, ref_ms, ref_launches = run(make_train_step(model, rt), state)
+    del state
+    torch.cuda.empty_cache()
+    state = make_train_state(model, torch.Generator(device=dev).manual_seed(0), rt)
+    step, st_sh, _ = shard_train_step(model, mesh, rt, state, batches[0])
+    state = distribute_tree(mesh, state, st_sh)
+    torch.cuda.reset_peak_memory_stats()
+    losses, ms, got = run(step, state)
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, ref_losses)]
+    emit({"phase": "mesh", "run": "train",
+          "cfg": f"{PHI} {cfg.n_layers} of {full.n_layers} layers bf16, fp32 AdamW, ZeRO-1",
+          "mesh": {"data": 1, "model": 1}, "backend": "nccl", "B": TRAIN_B, "S": TRAIN_S,
+          "remat": rt.remat, "losses": losses, "losses_unsharded": ref_losses,
+          "loss_rel_err": rel, "step_ms": ms, "step_ms_unsharded": ref_ms,
+          "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+          "launches": got, "launches_unsharded": ref_launches})
+    if not all(math.isfinite(x) for x in losses) or max(rel) > 1e-3:
+        raise AssertionError(f"mesh train: losses {losses} against {ref_losses}")
+    for name in MESH_TRAIN_KERNELS:
+        if got[name] != ref_launches[name] or not got[name]:
+            raise AssertionError(f"mesh train: {name} launched {got[name]} times, "
+                                 f"{ref_launches[name]} on one device")
+    check_launches(got, expected_train_launches(cfg, MESH_TRAIN_STEPS, 0, True),
+                   f"mesh train {PHI}")
+    del state
+    return got
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -1296,6 +1478,10 @@ def main() -> int:
             kw = ref_kw if name == "train reference" else {}
             launches[f"{name} {arch}"] = phase(torch, arch, **kw)
             log(f"chip_smoke: {name} {arch} done at {time.perf_counter() - t_start:.1f} s")
+
+    torch.cuda.empty_cache()
+    launches.update(run_mesh_phase(torch))
+    log(f"chip_smoke: mesh phase done at {time.perf_counter() - t_start:.1f} s")
 
     emit(kernels_line(main_rows, launches))
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s after the card check")

@@ -173,12 +173,15 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// One block per (b, h), HD threads: out = sum_s acc_s e^(m_s - M) / sum_s l_s e^(m_s - M).
+// One block per (b, h), HD threads: out = sum_s acc_s e^(m_s - M) / sum_s l_s e^(m_s - M),
+// and, where lse is given, lse = M + log(sum_s l_s e^(m_s - M)) in natural-log
+// units (-inf where no column is valid: out is 0 there), so that partial
+// outputs over disjoint column ranges merge exactly.
 template <typename T, int HD>
 __global__ void decode_combine_kernel(const float* __restrict__ part_m,
                                       const float* __restrict__ part_l,
                                       const float* __restrict__ part_acc, T* __restrict__ o,
-                                      int nsplit) {
+                                      float* __restrict__ lse, int nsplit) {
   const int64_t bh = blockIdx.x;
   const int d = threadIdx.x;
   const float* pm = part_m + bh * nsplit;
@@ -192,6 +195,7 @@ __global__ void decode_combine_kernel(const float* __restrict__ part_m,
     acc = fmaf(part_acc[(bh * nsplit + s) * HD + d], w, acc);
   }
   o[bh * HD + d] = from_f<T>(acc / (L == 0.f ? 1.f : L));
+  if (lse != nullptr && d == 0) lse[bh] = L == 0.f ? -INFINITY : M + logf(L);
 }
 
 
@@ -478,8 +482,8 @@ cudaError_t launch_split(const void* q, const void* k, const void* v, const int*
 // group, 8 where the group is larger (its heads then span several blocks).
 template <int HD>
 cudaError_t launch(const void* q, const void* k, const void* v, const int* kv_len, void* o,
-                   float* pm, float* pl, float* pa, int B, int T_len, int H, int K, int window,
-                   int chunk, cudaStream_t stream) {
+                   float* lse, float* pm, float* pl, float* pa, int B, int T_len, int H, int K,
+                   int window, int chunk, cudaStream_t stream) {
   if (chunk <= 0 || chunk % 16 != 0) return cudaErrorInvalidValue;
   if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v) % 16 != 0) return cudaErrorInvalidValue;
   const int nsplit = (T_len + chunk - 1) / chunk;
@@ -497,18 +501,18 @@ cudaError_t launch(const void* q, const void* k, const void* v, const int* kv_le
     err = launch_split<HD, 8>(q, k, v, kv_len, pm, pl, pa, B, T_len, H, K, window, chunk, nsplit, stream);
   if (err != cudaSuccess) return err;
   decode_combine_kernel<__nv_bfloat16, HD><<<B * H, HD, 0, stream>>>(
-      pm, pl, pa, static_cast<__nv_bfloat16*>(o), nsplit);
+      pm, pl, pa, static_cast<__nv_bfloat16*>(o), lse, nsplit);
   return cudaGetLastError();
 }
 
 cudaError_t dispatch_hd(const void* q, const void* k, const void* v, const int* kv_len, void* o,
-                        float* pm, float* pl, float* pa, int B, int T_len, int H, int K, int hd,
-                        int window, int chunk, cudaStream_t st) {
+                        float* lse, float* pm, float* pl, float* pa, int B, int T_len, int H,
+                        int K, int hd, int window, int chunk, cudaStream_t st) {
   switch (hd) {
-    case 64: return launch<64>(q, k, v, kv_len, o, pm, pl, pa, B, T_len, H, K, window, chunk, st);
-    case 112: return launch<112>(q, k, v, kv_len, o, pm, pl, pa, B, T_len, H, K, window, chunk, st);
-    case 128: return launch<128>(q, k, v, kv_len, o, pm, pl, pa, B, T_len, H, K, window, chunk, st);
-    case 256: return launch<256>(q, k, v, kv_len, o, pm, pl, pa, B, T_len, H, K, window, chunk, st);
+    case 64: return launch<64>(q, k, v, kv_len, o, lse, pm, pl, pa, B, T_len, H, K, window, chunk, st);
+    case 112: return launch<112>(q, k, v, kv_len, o, lse, pm, pl, pa, B, T_len, H, K, window, chunk, st);
+    case 128: return launch<128>(q, k, v, kv_len, o, lse, pm, pl, pa, B, T_len, H, K, window, chunk, st);
+    case 256: return launch<256>(q, k, v, kv_len, o, lse, pm, pl, pa, B, T_len, H, K, window, chunk, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -517,8 +521,8 @@ cudaError_t dispatch_hd(const void* q, const void* k, const void* v, const int* 
 
 template <typename T, int HD>
 cudaError_t launch(const void* q, const void* k, const void* v, const int* kv_len, void* o,
-                   float* part_m, float* part_l, float* part_acc, int B, int T_len, int H,
-                   int K, int window, cudaStream_t stream) {
+                   float* lse, float* part_m, float* part_l, float* part_acc, int B, int T_len,
+                   int H, int K, int window, cudaStream_t stream) {
   const int G = H / K;
   const int nsplit = (T_len + CH - 1) / CH;
   const size_t smem =
@@ -533,19 +537,19 @@ cudaError_t launch(const void* q, const void* k, const void* v, const int* kv_le
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   decode_combine_kernel<T, HD><<<B * H, HD, 0, stream>>>(part_m, part_l, part_acc,
-                                                         static_cast<T*>(o), nsplit);
+                                                         static_cast<T*>(o), lse, nsplit);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch_hd(const void* q, const void* k, const void* v, const int* kv_len,
-                        void* o, float* pm, float* pl, float* pa, int B, int T_len, int H,
-                        int K, int hd, int window, cudaStream_t st) {
+                        void* o, float* lse, float* pm, float* pl, float* pa, int B, int T_len,
+                        int H, int K, int hd, int window, cudaStream_t st) {
   switch (hd) {
-    case 64: return launch<T, 64>(q, k, v, kv_len, o, pm, pl, pa, B, T_len, H, K, window, st);
-    case 112: return launch<T, 112>(q, k, v, kv_len, o, pm, pl, pa, B, T_len, H, K, window, st);
-    case 128: return launch<T, 128>(q, k, v, kv_len, o, pm, pl, pa, B, T_len, H, K, window, st);
-    case 256: return launch<T, 256>(q, k, v, kv_len, o, pm, pl, pa, B, T_len, H, K, window, st);
+    case 64: return launch<T, 64>(q, k, v, kv_len, o, lse, pm, pl, pa, B, T_len, H, K, window, st);
+    case 112: return launch<T, 112>(q, k, v, kv_len, o, lse, pm, pl, pa, B, T_len, H, K, window, st);
+    case 128: return launch<T, 128>(q, k, v, kv_len, o, lse, pm, pl, pa, B, T_len, H, K, window, st);
+    case 256: return launch<T, 256>(q, k, v, kv_len, o, lse, pm, pl, pa, B, T_len, H, K, window, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -559,12 +563,13 @@ extern "C" const char* cuda_error_string(int err) {
 // dtype: 0 float32 (chunk must be CH = 64), 1 bfloat16 (chunk a multiple of
 // 16, from plan_splits). window < 0 means none. q: (B,1,H,hd), k/v:
 // (B,T,K,hd), o: (B,1,H,hd), all contiguous; kv_len: one int32 on the device.
+// lse: null, or float32 (B, H), each row's log-sum-exp of its scaled scores.
 // part: one float32 buffer of B*H*nsplit*(hd + 2), nsplit = ceil(T / chunk):
 // m at 0, l at B*H*nsplit, acc at 2*B*H*nsplit.
 extern "C" int decode_attention_fwd(const void* q, const void* k, const void* v,
-                                    const void* kv_len, void* o, void* part, int B, int T_len,
-                                    int H, int K, int hd, int window, int chunk, int dtype,
-                                    void* stream) {
+                                    const void* kv_len, void* o, void* lse, void* part, int B,
+                                    int T_len, int H, int K, int hd, int window, int chunk,
+                                    int dtype, void* stream) {
   if (B <= 0 || T_len <= 0 || K <= 0 || H % K != 0 || chunk <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* kl = static_cast<const int*>(kv_len);
@@ -572,13 +577,15 @@ extern "C" int decode_attention_fwd(const void* q, const void* k, const void* v,
   float* pm = static_cast<float*>(part);
   float* pl = pm + n;
   float* pa = pm + 2 * n;
+  float* ls = static_cast<float*>(lse);
   switch (dtype) {
     case 0:
       if (chunk != CH) return (int)cudaErrorInvalidValue;
-      return (int)dispatch_hd<float>(q, k, v, kl, o, pm, pl, pa, B, T_len, H, K, hd, window, st);
+      return (int)dispatch_hd<float>(q, k, v, kl, o, ls, pm, pl, pa, B, T_len, H, K, hd, window,
+                                     st);
     case 1:
-      return (int)hopper::dispatch_hd(q, k, v, kl, o, pm, pl, pa, B, T_len, H, K, hd, window,
-                                      chunk, st);
+      return (int)hopper::dispatch_hd(q, k, v, kl, o, ls, pm, pl, pa, B, T_len, H, K, hd,
+                                      window, chunk, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -22,8 +22,8 @@ from .flash_attention import DTYPE_CODES, HEAD_DIMS
 
 _NEG = -2.0e38
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# q, k, v, kv_len, out, scratch; B, T, H, K, hd, window, chunk, dtype; stream
-_SIGNATURES = {"decode_attention_fwd": [_P] * 6 + [_I] * 8 + [_P]}
+# q, k, v, kv_len, out, lse (or null), scratch; B, T, H, K, hd, window, chunk, dtype; stream
+_SIGNATURES = {"decode_attention_fwd": [_P] * 7 + [_I] * 8 + [_P]}
 F32_CHUNK = 64          # the float32 kernel's fixed chunk (CH in the source)
 BLOCKS_PER_SM = 4
 
@@ -42,13 +42,13 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def _fwd_args(q, k, v, kv_len, out, scratch, window, chunk, stream) -> tuple:
+def _fwd_args(q, k, v, kv_len, out, lse, scratch, window, chunk, stream) -> tuple:
     """The arguments of ``decode_attention_fwd``, in its order."""
     B, _, H, hd = q.shape
     T, K = k.shape[1], k.shape[2]
     return (q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(), out.data_ptr(),
-            scratch.data_ptr(), B, T, H, K, hd, -1 if window is None else int(window), chunk,
-            DTYPE_CODES[q.dtype], stream)
+            None if lse is None else lse.data_ptr(), scratch.data_ptr(), B, T, H, K, hd,
+            -1 if window is None else int(window), chunk, DTYPE_CODES[q.dtype], stream)
 
 
 def scratch_numel(B: int, H: int, hd: int, nsplit: int) -> int:
@@ -57,9 +57,12 @@ def scratch_numel(B: int, H: int, hd: int, nsplit: int) -> int:
 
 
 def decode_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                           kv_len, window: Optional[int] = None) -> torch.Tensor:
+                           kv_len, window: Optional[int] = None, return_lse: bool = False):
     """q: (B,1,H,hd); k/v: (B,T,K,hd); attend to [0, kv_len) (an int or a
-    0-dim integer tensor). Returns (B,1,H,hd)."""
+    0-dim integer tensor). Returns (B,1,H,hd), and with ``return_lse`` also
+    each row's log-sum-exp of its scaled scores, float32 (B, H). Where no
+    column is valid (``kv_len`` <= 0) the output is 0 and the lse -inf, as
+    the kernel gives them."""
     B, S, H, hd = q.shape
     T, K = k.shape[1], k.shape[2]
     G = H // K
@@ -71,15 +74,25 @@ def decode_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         ok = ok & (cols > kv_len - 1 - window)
     s = torch.where(ok, s, torch.tensor(_NEG, dtype=s.dtype, device=s.device))
     w = torch.softmax(s, dim=-1).to(v.dtype)
-    return torch.einsum("bkgst,btkd->bskgd", w, v).reshape(B, S, H, hd)
+    any_ok = ok.any()
+    out = torch.einsum("bkgst,btkd->bskgd", w, v).reshape(B, S, H, hd)
+    out = torch.where(any_ok, out, torch.zeros((), dtype=out.dtype, device=out.device))
+    if not return_lse:
+        return out
+    lse = torch.logsumexp(s, dim=-1).reshape(B, H)
+    return out, torch.where(any_ok, lse, torch.full((), float("-inf"), device=lse.device))
 
 
 def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                          kv_len: torch.Tensor, window: Optional[int] = None) -> torch.Tensor:
+                          kv_len: torch.Tensor, window: Optional[int] = None,
+                          return_lse: bool = False):
     """Launch the CUDA kernels (split + combine) on PyTorch's current stream.
 
     ``kv_len``: an int32 tensor of one element on q's device. bf16 splits
-    the cache as ``plan_splits`` says, float32 in chunks of ``F32_CHUNK``."""
+    the cache as ``plan_splits`` says, float32 in chunks of ``F32_CHUNK``.
+    With ``return_lse`` the combine pass also writes each row's log-sum-exp
+    (float32 (B, H); -inf where no column is valid), returned after the
+    output."""
     if not (q.is_cuda and k.is_cuda and v.is_cuda):
         raise ValueError("decode_attention_cuda takes CUDA tensors")
     if q.dim() != 4 or q.shape[1] != 1 or k.dim() != 4 or k.shape != v.shape:
@@ -105,10 +118,11 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     else:
         chunk, nsplit = F32_CHUNK, -(-T // F32_CHUNK)
     out = torch.empty_like(q)
+    lse = torch.empty((B, H), dtype=torch.float32, device=q.device) if return_lse else None
     scratch = torch.empty(scratch_numel(B, H, hd, nsplit), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         err = lib.decode_attention_fwd(*_fwd_args(
-            q, k, v, kv_len, out, scratch, window, chunk,
+            q, k, v, kv_len, out, lse, scratch, window, chunk,
             torch.cuda.current_stream(q.device).cuda_stream))
     build.check(lib, err, "decode_attention_fwd")
-    return out
+    return (out, lse) if return_lse else out

@@ -16,6 +16,11 @@ its log-sum-exp) and whose backward launches the backward kernel
 (``rmsnorm_bwd``, ``flash_attention_bwd``, ``ssd_intra_chunk_bwd``).
 Without a gradient (``inference_mode``, serving) the forward kernels launch
 exactly as before. On the CPU autograd runs through the plain versions.
+
+DTensors (the sharded steps of ``runtime/parallel.py``) go to
+``kernels/sharded.py``, which runs these same entry points on each rank's
+local shards through ``local_map`` where the placements make that exact,
+and raises on any other placement.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from .decode_attention import decode_attention_cuda, decode_attention_plain
 from .flash_attention import (
@@ -31,6 +37,7 @@ from .flash_attention import (
     flash_attention_plain,
 )
 from .rmsnorm import rmsnorm_bwd_triton, rmsnorm_plain, rmsnorm_triton
+from . import sharded
 from .ssd_scan import ssd_intra_chunk_bwd_cuda, ssd_intra_chunk_cuda, ssd_intra_chunk_plain
 
 KERNELS = ("rmsnorm", "flash_attention", "decode_attention", "ssd_intra_chunk",
@@ -114,6 +121,8 @@ class _SSDIntraChunk(torch.autograd.Function):
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-5) -> torch.Tensor:
     """y = x * rsqrt(mean(x^2, -1) + eps) * scale; x: (..., d), scale: (d,)."""
+    if isinstance(x, DTensor):
+        return sharded.rmsnorm(x, scale, eps=eps, local=rmsnorm)
     if not _on_cuda(x, "rmsnorm"):
         return rmsnorm_plain(x, scale, eps=eps)
     if _wants_grad(x, scale):
@@ -126,6 +135,9 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-5) -> torch
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None) -> torch.Tensor:
     """q: (B,S,H,hd); k/v: (B,T,K,hd) -> (B,S,H,hd)."""
+    if isinstance(q, DTensor):
+        return sharded.flash_attention(q, k, v, causal=causal, window=window,
+                                       local=flash_attention)
     if not _on_cuda(q, "flash_attention"):
         return flash_attention_plain(q, k, v, causal=causal, window=window)
     if _wants_grad(q, k, v):
@@ -136,14 +148,21 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                     kv_len, window: Optional[int] = None) -> torch.Tensor:
+                     kv_len, window: Optional[int] = None, return_lse: bool = False):
     """q: (B,1,H,hd); k/v: (B,T,K,hd); attend to cache columns [0, kv_len).
+    With ``return_lse`` also each row's log-sum-exp, float32 (B, H).
 
     On the card ``kv_len`` must be a one-element int32 tensor on q's device.
     """
+    if isinstance(q, DTensor):
+        if return_lse:
+            raise ValueError("decode_attention on DTensors merges the lse itself")
+        return sharded.decode_attention(q, k, v, kv_len=kv_len, window=window,
+                                        local=decode_attention)
     if not _on_cuda(q, "decode_attention"):
-        return decode_attention_plain(q, k, v, kv_len=kv_len, window=window)
-    out = decode_attention_cuda(q, k, v, kv_len=kv_len, window=window)
+        return decode_attention_plain(q, k, v, kv_len=kv_len, window=window,
+                                      return_lse=return_lse)
+    out = decode_attention_cuda(q, k, v, kv_len=kv_len, window=window, return_lse=return_lse)
     LAUNCHES["decode_attention"] += 1
     return out
 
@@ -151,6 +170,8 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def ssd_intra_chunk(la: torch.Tensor, C: torch.Tensor, B_in: torch.Tensor, x: torch.Tensor):
     """la: (B,nc,Q,H); C/B_in: (B,nc,Q,N); x: (B,nc,Q,H,P) ->
     (y (B,nc,Q,H,P), states (B,nc,H,P,N), tot (B,nc,H)), float32."""
+    if isinstance(la, DTensor):
+        return sharded.ssd_intra_chunk(la, C, B_in, x, local=ssd_intra_chunk)
     if not _on_cuda(la, "ssd_intra_chunk"):
         return ssd_intra_chunk_plain(la, C, B_in, x)
     if _wants_grad(la, C, B_in, x):

@@ -19,6 +19,12 @@ the given encoder k/v, without RoPE, qk-norm on k or a cache, non-causal:
 ``ops.flash_attention(causal=False)`` over S queries and T keys, and at one
 query row without autograd (decode) ``ops.decode_attention`` over all T
 keys (``kv_len`` = T, a device int32 made on the device).
+
+Under a mesh hint (``runtime/parallel.py``'s sharded steps) q/k/v are
+DTensors, constrained to the head-aligned layout ``repro`` asks for (batch
+over dp, heads over "model" where that divides), and the kernels run on
+local shards (``kernels/sharded.py``); a sequence-sharded decode cache is
+written only by the rank holding the row.
 """
 
 from __future__ import annotations
@@ -26,9 +32,11 @@ from __future__ import annotations
 from typing import NamedTuple, Optional
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from ..configs.base import ModelConfig
-from ..kernels import ops
+from ..hints import constrain, get_mesh_hint, hint_spec
+from ..kernels import ops, sharded
 from ..precision import compute_dtype
 from .layers import apply_rope, dense, dense_init, head_rmsnorm, rope_tables
 
@@ -135,6 +143,20 @@ def blockwise_sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal:
     return torch.cat(outs, dim=1)
 
 
+def _heads(y: torch.Tensor, n: int, hd: int) -> torch.Tensor:
+    """(B, S, n*hd) -> (B, S, n, hd) in ``repro``'s head-aligned layout:
+    heads over "model" where it divides n, else replicated (never a split
+    head dim). Under a mesh hint a DTensor's flat dim is first made whole
+    where its shards would split heads (the collective ``repro``'s
+    constraint places); without one, a plain reshape."""
+    B, S = y.shape[0], y.shape[1]
+    mesh = get_mesh_hint()
+    if isinstance(y, DTensor) and mesh is not None \
+            and hint_spec(mesh, (B, S, n, hd), ("dp", None, "model", None))[2] is None:
+        y = constrain(y, "dp", None, None)
+    return constrain(y.reshape(B, S, n, hd), "dp", None, "model", None)
+
+
 def attention(
     p,
     x: torch.Tensor,
@@ -172,7 +194,7 @@ def attention(
     """
     B, S, d = x.shape
     H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    q = dense(p["wq"], x).reshape(B, S, H, hd)
+    q = _heads(dense(p["wq"], x), H, hd)
     if kv_override is not None:
         if cfg.qk_norm:
             q = head_rmsnorm(p["q_norm"], q, cfg.norm_eps)
@@ -184,8 +206,8 @@ def attention(
             out = ops.flash_attention(q, k, v, causal=False)
         return dense(p["wo"], out.reshape(B, S, H * hd)), None
 
-    k = dense(p["wk"], x).reshape(B, S, K, hd)
-    v = dense(p["wv"], x).reshape(B, S, K, hd)
+    k = _heads(dense(p["wk"], x), K, hd)
+    v = _heads(dense(p["wv"], x), K, hd)
 
     if cfg.qk_norm:
         q = head_rmsnorm(p["q_norm"], q, cfg.norm_eps)
@@ -206,9 +228,14 @@ def attention(
         if S != 1:
             raise ValueError(f"decode takes one token per sequence, got S={S}")
         ring = kv_positions is not None
-        idx = (cache_write_pos if ring else cache_pos).reshape(1).long()
-        cache.k.index_copy_(1, idx, k)
-        cache.v.index_copy_(1, idx, v)
+        at = cache_write_pos if ring else cache_pos
+        if isinstance(cache.k, DTensor):
+            sharded.cache_write_at(cache.k, at, k)
+            sharded.cache_write_at(cache.v, at, v)
+        else:
+            idx = at.reshape(1).long()
+            cache.k.index_copy_(1, idx, k)
+            cache.v.index_copy_(1, idx, v)
         if ring:
             kv_len = torch.clamp(cache_pos + 1, max=cache.k.shape[1]).to(torch.int32)
             window = None

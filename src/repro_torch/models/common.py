@@ -9,6 +9,7 @@ import torch
 import torch.utils.checkpoint
 
 from ..configs.base import ModelConfig
+from ..hints import get_mesh_hint
 
 
 def tree_map(fn: Callable, tree, *rest):
@@ -48,6 +49,17 @@ def stack_init(gen: torch.Generator, n: int, fn: Callable):
     for i in range(1, n):
         put(stacked, fn(gen), i)
     return stacked
+
+
+def serving(fn: Callable) -> Callable:
+    """``inference_mode`` for a serve entry point; ``no_grad`` under a mesh
+    hint, since DTensor views cannot be made of non-inference tensors in
+    inference mode. Either way no gradient is kept and the same kernels run."""
+    @functools.wraps(fn)
+    def run(*args, **kwargs):
+        with torch.no_grad() if get_mesh_hint() is not None else torch.inference_mode():
+            return fn(*args, **kwargs)
+    return run
 
 
 def remat_wrap(fn: Callable, policy: Optional[str]) -> Callable:

@@ -11,9 +11,12 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate
+from torch.distributed.tensor.experimental import local_map
 
 from ..configs.base import ModelConfig
-from ..kernels import ops
+from ..hints import flag
+from ..kernels import ops, sharded
 from ..kernels.rmsnorm import rmsnorm_bwd_plain, rmsnorm_plain
 from ..precision import widen
 
@@ -65,7 +68,10 @@ def rmsnorm(p, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
 
 
 def norm(p, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
-    """rmsnorm through the kernel dispatch (Triton on the card)."""
+    """rmsnorm through the kernel dispatch (Triton on the card), switching to
+    the bf16-cotangent backward under the "bf16bwd" flag, as ``repro`` does."""
+    if flag("bf16bwd"):
+        return rmsnorm_bf16bwd(p["scale"], x, eps)
     return ops.rmsnorm(x, p["scale"], eps=eps)
 
 
@@ -90,6 +96,9 @@ def rmsnorm_bf16bwd(scale: torch.Tensor, x: torch.Tensor, eps: float = 1e-5) -> 
     VJP, ``layers.py:52-83``). On the card this is what ``kernels.ops.rmsnorm``
     already does under autograd (the Triton backward casts dx to x's dtype);
     on the CPU the plain forward with the plain ``_rms_bwd``."""
+    if isinstance(x, DTensor):
+        return sharded.rmsnorm(x, scale, eps=eps,
+                               local=lambda a, s, eps: rmsnorm_bf16bwd(s, a, eps))
     if x.device.type == "cuda":
         return ops.rmsnorm(x, scale, eps=eps)
     return _RMSNormBf16Bwd.apply(scale, x, eps)
@@ -101,7 +110,14 @@ def head_rmsnorm(scale: torch.Tensor, x: torch.Tensor, eps: float = 1e-5) -> tor
 
 
 def embed(p, tokens: torch.Tensor) -> torch.Tensor:
-    return F.embedding(tokens, p["w"])
+    """Token rows of the table. On a vocab-sharded DTensor table each rank
+    holds the rows of its own tokens (a masked partial sum); they are summed
+    here, so that the residual stream is whole."""
+    y = F.embedding(tokens, p["w"])
+    if isinstance(y, DTensor) and any(pl.is_partial() for pl in y.placements):
+        y = y.redistribute(y.device_mesh, [Replicate() if pl.is_partial() else pl
+                                           for pl in y.placements])
+    return y
 
 
 def unembed(p, x: torch.Tensor) -> torch.Tensor:
@@ -153,10 +169,37 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor, *,
                        ignore_index: int = -100) -> torch.Tensor:
     """Mean next-token CE over non-ignored positions, float32 logsumexp over
     the whole (padded) vocab. logits (B,S,V), labels (B,S)."""
+    if isinstance(logits, DTensor):
+        return _sharded_cross_entropy(logits, labels, ignore_index)
+    nll, count = _nll_sum(logits, labels, ignore_index)
+    return nll / count.clamp_min(1)
+
+
+def _nll_sum(logits, labels, ignore_index):
     valid = labels != ignore_index
     labels_safe = torch.where(valid, labels, torch.zeros_like(labels))
     lf = widen(logits)
     logz = torch.logsumexp(lf, dim=-1)
     gold = torch.gather(lf, -1, labels_safe[..., None].long())[..., 0]
-    nll = (logz - gold) * valid
-    return nll.sum() / valid.sum().clamp_min(1)
+    return ((logz - gold) * valid).sum(), valid.sum()
+
+
+def _sharded_cross_entropy(logits: DTensor, labels, ignore_index):
+    """The loss on DTensor logits: the vocab made whole on every rank (an
+    all-gather over the mesh dims that shard it, as GSPMD does for the
+    logsumexp), then the sums of each rank's rows, added across the mesh
+    dims that shard the rows."""
+    mesh, nd = logits.device_mesh, logits.ndim
+    lp = [Replicate() if p.is_partial() or (p.is_shard() and p.dim == nd - 1) else p
+          for p in logits.placements]
+    if tuple(lp) != tuple(logits.placements):
+        logits = logits.redistribute(mesh, lp)
+    if not isinstance(labels, DTensor):
+        labels = DTensor.from_local(labels, mesh, [Replicate()] * mesh.ndim, run_check=False)
+    if tuple(labels.placements) != tuple(lp):
+        labels = labels.redistribute(mesh, lp)
+    sums = [Partial() if p.is_shard() else Replicate() for p in lp]
+    nll, count = local_map(lambda a, b: _nll_sum(a, b, ignore_index),
+                           out_placements=(sums, sums), in_placements=(lp, lp),
+                           device_mesh=mesh)(logits, labels)
+    return nll / count.clamp_min(1)

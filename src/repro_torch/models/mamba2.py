@@ -25,6 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
+from ..hints import constrain
 from ..kernels import ops
 from ..precision import compute_dtype, widen
 from .layers import dense, dense_init, norm
@@ -138,7 +139,9 @@ def mamba_forward(p, x: torch.Tensor, cfg: ModelConfig, *, cache: MambaCache | N
         cache.conv.copy_(window[:, 1:, :])
 
     xs, B_in, C_in = torch.split(xBC, [di, N, N], dim=-1)
-    xs = xs.reshape(Bsz, S, H, P)
+    xs = constrain(xs.reshape(Bsz, S, H, P), "dp", None, "model", None)
+    B_in = constrain(B_in, "dp", None, None)
+    C_in = constrain(C_in, "dp", None, None)
     dt = F.softplus(widen(dt_raw) + p["dt_bias"])
     A = -torch.exp(p["A_log"])
 

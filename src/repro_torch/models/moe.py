@@ -20,6 +20,14 @@ no TPU kernel for them).
 ``moe_ffn`` returns the Switch load-balance auxiliary loss (Switch §2.2):
 ``aux = E * sum_e f_e * P_e``.
 
+On DTensors (the mesh steps) ``experts`` runs ``repro``'s layouts: the
+dispatch plan, the gather of each row's tokens into its (E, C) slots and the
+combine run on each rank's own rows (``local_map``); between them the
+(B, E, C, d) buffer is constrained as ``repro`` constrains it. The baseline
+(GShard) reshards it to (E, B*C, d) with experts over "model"; under the
+"moe2d" flag it stays (B, E, C, d), batch over dp and experts over "model",
+and only the combine gathers the expert outputs over "model".
+
 ``observe`` is the one hook for tools that watch the MoE layers (comparison
 runs, tests, ``launch/profile.py``): a routing hook that ``route`` calls
 with what it computed, and ``record_function("moe.<name>")`` spans around
@@ -34,9 +42,12 @@ import functools
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial
+from torch.distributed.tensor.experimental import local_map
 from torch.profiler import record_function
 
 from ..configs.base import ModelConfig
+from ..hints import constrain, flag
 from .layers import dense_init
 
 _ROUTE_HOOK = None     # hook(p, x, logits, probs, w, idx) -> (w, idx)
@@ -138,6 +149,8 @@ def experts(p, x: torch.Tensor, w: torch.Tensor, idx: torch.Tensor, cfg: ModelCo
     empty slots), and each dispatch reads its expert output by row index (a
     zero row appended for drops): the same values as ``repro``'s transposes.
     """
+    if isinstance(x, DTensor):
+        return _experts_sharded(p, x, w, idx, cfg)
     B, S, d = x.shape
     E, k = cfg.n_experts, cfg.experts_per_token
     C = _capacity(S, cfg)
@@ -159,15 +172,75 @@ def experts(p, x: torch.Tensor, w: torch.Tensor, idx: torch.Tensor, cfg: ModelCo
     return (y_rep * w[..., None]).sum(dim=2)
 
 
+def _rows(t: DTensor) -> list:
+    """``t``'s placements, checked to shard nothing but rows (dim 0)."""
+    if any(not (pl.is_replicate() or pl.is_shard(0)) for pl in t.placements):
+        raise ValueError(f"moe: rows sharded only, got {tuple(t.placements)}")
+    return list(t.placements)
+
+
+def _experts_sharded(p, x: DTensor, w, idx, cfg: ModelConfig):
+    """``experts`` on DTensors, in ``repro``'s (B, E, C, d) layouts."""
+    mesh = x.device_mesh
+    B, S, d = x.shape
+    E, k = cfg.n_experts, cfg.experts_per_token
+    C = _capacity(S, cfg)
+    rows = _rows(x)
+
+    def gather(xl, il):
+        slot_tok, slots = dispatch_plan(il, E, C)
+        Bl = xl.shape[0]
+        x_pad = torch.cat([xl, xl.new_zeros((Bl, 1, d))], dim=1)      # empty slots: zero row
+        buf = x_pad.gather(1, slot_tok[..., None].expand(Bl, E * C, d))
+        return buf.view(Bl, E, C, d), slots
+
+    buf, slots = local_map(gather, out_placements=(rows, rows), in_placements=(rows, rows),
+                           device_mesh=mesh)(x, idx)
+    if flag("moe2d"):
+        buf = constrain(buf, "dp", "model", None, None)
+        h = torch.einsum("becd,edf->becf", buf, p["gate"])
+        u = torch.einsum("becd,edf->becf", buf, p["up"])
+        out = torch.einsum("becf,efd->becd", F.silu(h) * u, p["down"])
+        out = constrain(out, "dp", None, None, None).reshape(B, E * C, d)
+    else:
+        buf = constrain(buf, "dp", None, None, None)
+        buf = constrain(buf.transpose(0, 1).reshape(E, B * C, d), "model", None, None)
+        h = torch.bmm(buf, p["gate"])
+        u = torch.bmm(buf, p["up"])
+        out = torch.bmm(F.silu(h) * u, p["down"])
+        out = out.reshape(E, B, C, d).transpose(0, 1).reshape(B, E * C, d)
+        out = constrain(out, "dp", None, None)
+
+    def combine(ol, sl, wl):
+        Bl = ol.shape[0]
+        o_pad = torch.cat([ol, ol.new_zeros((Bl, 1, d))], dim=1)      # drops: zero row
+        y_rep = o_pad.gather(1, sl[..., None].expand(Bl, S * k, d)).view(Bl, S, k, d)
+        return (y_rep * wl[..., None]).sum(dim=2)
+
+    out = out.redistribute(mesh, rows) if list(out.placements) != rows else out
+    return local_map(combine, out_placements=rows, in_placements=(rows, rows, w.placements),
+                     device_mesh=mesh)(out, slots, w)
+
+
 @_spanned
 def load_balance_aux(probs: torch.Tensor, idx: torch.Tensor, E: int) -> torch.Tensor:
     """Switch aux: E * sum_e (fraction of dispatches to e) * (mean prob of e)."""
-    flat = idx.reshape(-1)
-    f_e = torch.zeros((E,), dtype=torch.float32, device=probs.device).index_add_(
-        0, flat, torch.ones(flat.shape, dtype=torch.float32, device=probs.device))
-    f_e = f_e / flat.numel()
+    if isinstance(idx, DTensor):     # each rank counts its rows; the counts add up
+        counts = local_map(lambda il: _counts(il, E),
+                           out_placements=[Partial() if pl.is_shard() else pl
+                                           for pl in _rows(idx)],
+                           in_placements=(idx.placements,), device_mesh=idx.device_mesh)
+        f_e = counts(idx) / idx.numel()
+    else:
+        f_e = _counts(idx, E) / idx.numel()
     p_e = probs.mean(dim=(0, 1))
     return E * torch.sum(f_e * p_e)
+
+
+def _counts(idx: torch.Tensor, E: int) -> torch.Tensor:
+    flat = idx.reshape(-1)
+    return torch.zeros((E,), dtype=torch.float32, device=idx.device).index_add_(
+        0, flat, torch.ones(flat.shape, dtype=torch.float32, device=idx.device))
 
 
 def moe_ffn(p, x: torch.Tensor, cfg: ModelConfig):

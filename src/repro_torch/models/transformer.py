@@ -31,10 +31,12 @@ import functools
 from typing import Optional
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from ..configs.base import ModelConfig
+from ..kernels.sharded import cache_write_prefix
 from .attention import KVCache, attention, attn_init
-from .common import Model, remat_wrap, stack_init, tree_map, unstack
+from .common import Model, remat_wrap, serving, stack_init, tree_map, unstack
 from .layers import (
     cross_entropy_loss,
     dtype_of,
@@ -192,21 +194,24 @@ def loss_fn(params, batch, cfg: ModelConfig, *, remat: Optional[str] = None):
     return ce + MOE_AUX_COEF * aux, {"ce": ce, "aux": aux}
 
 
-@torch.inference_mode()
-def prefill(params, batch, S_max: int, cfg: ModelConfig):
+@serving
+def prefill(params, batch, S_max: int, cfg: ModelConfig, *, cache=None):
     """Run the prompt (a VLM's patch prefix included), return (last-position
     logits, decode cache). Each layer's k/v go into the cache as the layer
     finishes.
 
     The cache is {"k", "v": (L, B, S_max, K, hd), "pos": 0-dim int32}; for
     gemma3 {"lk", "lv", "ring_pos", "gk", "gv", "pos"} (module docstring).
+    ``cache``, where given, is a zero cache of that form to fill: the
+    sharded prefill passes one laid out on its mesh.
     """
     x, _ = _embed_inputs(params, cfg, batch)
     B, S = x.shape[0], x.shape[1]
     if S > S_max:
         raise ValueError(f"prompt length {S} > S_max {S_max}")
     device = x.device
-    cache = init_cache(cfg, B, S_max, device)
+    if cache is None:
+        cache = init_cache(cfg, B, S_max, device)
     if cfg.local_global_ratio:
         first = max(0, S - cfg.sliding_window)          # the trailing min(S, W) positions
         kept = torch.arange(first, S, device=device)
@@ -218,6 +223,9 @@ def prefill(params, batch, S_max: int, cfg: ModelConfig):
         if where[0] == "local":
             dst.k.index_copy_(1, slots, kv.k[:, first:])
             dst.v.index_copy_(1, slots, kv.v[:, first:])
+        elif isinstance(dst.k, DTensor):
+            cache_write_prefix(dst.k, kv.k)
+            cache_write_prefix(dst.v, kv.v)
         else:
             dst.k[:, :S] = kv.k
             dst.v[:, :S] = kv.v
@@ -228,7 +236,7 @@ def prefill(params, batch, S_max: int, cfg: ModelConfig):
     return logits, cache
 
 
-@torch.inference_mode()
+@serving
 def decode_step(params, cache, batch, cfg: ModelConfig):
     """One token for every sequence. batch: {"token": (B,)}.
 

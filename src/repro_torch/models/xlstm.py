@@ -29,6 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
+from ..hints import constrain
 from ..precision import compute_dtype, widen
 from .layers import dense, dense_init, norm
 from .mamba2 import _causal_conv
@@ -203,9 +204,9 @@ def mlstm_forward(p, x: torch.Tensor, cfg: ModelConfig, *, cache: MLSTMCache | N
         cx = F.silu(torch.einsum("bwc,wc->bc", window, p["conv_w"]) + p["conv_b"])[:, None]
         cache.conv.copy_(window[:, 1:, :])
 
-    q = dense(p["wq"], cx).reshape(B, S, H, dh)
-    k = dense(p["wk"], cx).reshape(B, S, H, dh)
-    v = dense(p["wv"], x_in).reshape(B, S, H, dh)
+    q = constrain(dense(p["wq"], cx).reshape(B, S, H, dh), "dp", None, "model", None)
+    k = constrain(dense(p["wk"], cx).reshape(B, S, H, dh), "dp", None, "model", None)
+    v = constrain(dense(p["wv"], x_in).reshape(B, S, H, dh), "dp", None, "model", None)
     i_pre, f_pre = dense(p["w_gates"], widen(x_in)).chunk(2, dim=-1)    # (B,S,H) each
     if cache is None:
         h, carry = mlstm_core(q, k, v, F.logsigmoid(f_pre), i_pre, cfg.ssm_chunk)

@@ -8,6 +8,13 @@ width a second copy of the fp32 state is ~24 GB. The returned state holds
 the same dicts and a new step. It works one leaf at a time, so its
 temporaries are the size of the largest leaf; ``torch._foreach_*`` ops would
 hold one temporary per leaf at once (~8 GB each at that width).
+
+On DTensors (the mesh steps of ``runtime/parallel.py``) the norm is the
+whole tensor's on every rank (a rank clipping by its own shard's norm would
+drift from the others without an error), and under ZeRO-1 (m, v and the
+master weights also sharded over "data") each grad is cut to the state's
+layout before the update and the new master weights are gathered to the
+param's layout before they are copied into it.
 """
 
 from __future__ import annotations
@@ -16,6 +23,7 @@ import dataclasses
 from typing import Any, NamedTuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from ..models.common import tree_map
 
@@ -57,10 +65,21 @@ def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum over leaves of sum(g^2), in float32."""
     total = None
     for g in leaves(tree):
-        gf = g.detach().reshape(-1).float()
-        sq = torch.dot(gf, gf)
+        if isinstance(g, DTensor):
+            sq = g.detach().float().square().sum().full_tensor()
+        else:
+            gf = g.detach().reshape(-1).float()
+            sq = torch.dot(gf, gf)
         total = sq if total is None else total + sq
     return torch.sqrt(total)
+
+
+def _to(t, like):
+    """DTensor ``t`` in ``like``'s placements (a local slice where ``like``
+    adds a shard, a gather where it drops one); a plain tensor as it is."""
+    if isinstance(t, DTensor) and tuple(t.placements) != tuple(like.placements):
+        return t.redistribute(like.device_mesh, like.placements)
+    return t
 
 
 @torch.no_grad()
@@ -78,12 +97,12 @@ def update(grads, state: OptState, params, cfg: AdamWConfig, lr_scale=1.0):
 
     for g, m, v, mw, p in zip(leaves(grads), leaves(state.m), leaves(state.v),
                               leaves(state.master), leaves(params)):
-        g = g.float() * scale
+        g = _to(g, m).float() * scale
         m.mul_(b1).add_((1 - b1) * g)
         v.mul_(b2).add_(((1 - b2) * g).mul_(g))
         # lr * (mhat / (sqrt(vhat) + eps) + wd * mw), temporaries reused
         upd = (m / bc1).div_(torch.sqrt(v / bc2).add_(cfg.eps)).add_(cfg.weight_decay * mw)
         mw.sub_(upd.mul_(lr))
-        p.copy_(mw)                          # cast back to the param's dtype
+        p.copy_(_to(mw, p))                  # cast back to the param's dtype
     return params, OptState(step, state.master, state.m, state.v), {
         "grad_norm": gnorm, "lr": lr}

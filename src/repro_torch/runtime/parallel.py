@@ -1,11 +1,24 @@
-"""Step builders on one device: train_step / prefill / decode_step.
+"""Step functions: train_step / prefill / decode_step, on one device and on
+a ``DeviceMesh``.
 
-The port of ``src/repro/runtime/parallel.py`` without the mesh: no
-shardings, no ZeRO-1, no buffer donation (the optimizer updates its state in
-place instead, ``optim/adamw.py``), and no ``use_kernels`` switch (the port
-dispatches on the tensor's device: on the card every norm and attention
-layer runs its forward and backward kernels). Multi-device comes with the
-``torch.distributed`` slice.
+The port of ``src/repro/runtime/parallel.py``. The one-device makers
+(``make_*``) have no ``use_kernels`` switch: the port dispatches on the
+tensor's device, and on the card every norm and attention layer runs its
+forward and backward kernels.
+
+The mesh makers (``shard_train_step``, ``shard_prefill``,
+``shard_decode_step``: ``repro``'s ``jit_*``) lay params, optimizer state,
+batches and caches out as DTensors by ``runtime/sharding.py``'s rules and
+run the same step under ``mesh_hint(mesh, rt.flags)``: the model's
+``hints.constrain`` calls put activations in ``repro``'s layouts, DTensor
+propagates the rest (the Megatron pattern falls out of the rules), and the
+hand-written kernels run on each rank's local shards (``kernels/sharded.py``).
+Plain tensors made inside the step (masks, tables) count as replicated
+(``implicit_replication``). The train step is ZeRO-1-ready (``rt.zero1``:
+m, v and the master weights also sharded over "data"), with gradient
+accumulation and int8 error-feedback compression on DTensor grads. Buffer
+donation has no counterpart: AdamW updates its state and the params in
+place, and decode writes its cache in place.
 """
 
 from __future__ import annotations
@@ -14,18 +27,23 @@ import dataclasses
 from typing import Any, Callable, NamedTuple, Optional
 
 import torch
+from torch.distributed.tensor import DTensor, distribute_tensor
+from torch.distributed.tensor.experimental import implicit_replication
 
 from .. import optim
+from ..hints import constrain, mesh_hint
 from ..models.common import Model, tree_map
 from ..optim.adamw import leaves
+from . import sharding as sh
 
 
 @dataclasses.dataclass(frozen=True)
 class RuntimeConfig:
     remat: Optional[str] = "full"          # None | "dots" (taken as "full") | "full"
     compress_grads: bool = False           # int8 + error feedback
+    zero1: bool = True                     # shard opt state over "data" (mesh steps)
     accum: int = 1                         # gradient-accumulation microbatches
-    flags: tuple = ()                      # variant switches ("accbf16")
+    flags: tuple = ()                      # variant switches (hints.flag, "accbf16")
     schedule: str = "warmup_cosine"
     opt: optim.AdamWConfig = dataclasses.field(default_factory=optim.AdamWConfig)
 
@@ -67,9 +85,17 @@ def loss_and_grads(model: Model, params, batch, *, remat: Optional[str] = None):
     for p in flat:
         p.requires_grad_(True)
     loss, metrics = model.loss(params, batch, remat=remat)
-    grads = torch.autograd.grad(loss, flat)
+    grads = [_placed_like(g, p) for g, p in zip(torch.autograd.grad(loss, flat), flat)]
     return loss.detach(), {k: v.detach() for k, v in metrics.items()}, \
-        _unflatten_like(params, list(grads))
+        _unflatten_like(params, grads)
+
+
+def _placed_like(g, p):
+    """A DTensor grad in its param's placements: pending sums (the data-
+    parallel all-reduce, the row-parallel partial products) are reduced."""
+    if isinstance(g, DTensor) and tuple(g.placements) != tuple(p.placements):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
 
 
 def make_train_step(model: Model, rt: RuntimeConfig) -> Callable:
@@ -83,11 +109,15 @@ def make_train_step(model: Model, rt: RuntimeConfig) -> Callable:
 
     def train_step(state: TrainState, batch):
         if rt.accum > 1:
-            micro = {k: v.reshape(rt.accum, v.shape[0] // rt.accum, *v.shape[1:])
-                     for k, v in batch.items()}
+            # microbatch i is rows [i*B/accum, (i+1)*B/accum), sharded over dp:
+            # on a mesh the (small, integer) batch is made whole to cut it
+            def split(v):
+                v = constrain(v, *(None,) * v.ndim)
+                return constrain(v.reshape(rt.accum, v.shape[0] // rt.accum, *v.shape[1:]),
+                                 None, "dp")
+            micro = {k: split(v) for k, v in batch.items()}
             acc_dt = torch.bfloat16 if "accbf16" in rt.flags else torch.float32
-            gsum = tree_map(lambda p: torch.zeros(p.shape, dtype=acc_dt, device=p.device),
-                            state.params)
+            gsum = tree_map(lambda p: torch.zeros_like(p, dtype=acc_dt), state.params)
             loss_sum = 0.0
             for i in range(rt.accum):
                 loss, _, g = grads_of(state.params, {k: v[i] for k, v in micro.items()})
@@ -123,3 +153,90 @@ def make_decode_step(model: Model, rt: RuntimeConfig) -> Callable:
         return model.decode_step(params, cache, batch)
 
     return decode
+
+
+# -- the mesh ------------------------------------------------------------------
+def distribute_tree(mesh, tree, specs):
+    """Lay a tree of full tensors onto ``mesh`` by a tree of logical specs
+    (``distribute_tensor`` per leaf). Every rank must hold the identical full
+    tensors, built from the same explicit generator: each keeps its own
+    shard of its own copy, and nothing is sent. A DTensor leaf is taken as
+    laid out already."""
+    if isinstance(tree, DTensor):
+        return tree
+    if isinstance(tree, dict):
+        return {k: distribute_tree(mesh, v, specs[k]) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        parts = [distribute_tree(mesh, t, s) for t, s in zip(tree, specs)]
+        return type(tree)(*parts) if hasattr(tree, "_fields") else tuple(parts)
+    return distribute_tensor(tree, mesh, sh.placements(mesh, specs), src_data_rank=None)
+
+
+def train_state_shardings(mesh, state_like: TrainState, rt: RuntimeConfig) -> TrainState:
+    ps = sh.param_shardings(mesh, state_like.params)
+    os_ = sh.opt_shardings(mesh, state_like.opt, ps, zero1=rt.zero1)
+    ef = optim.ErrorFeedback(os_.m) if rt.compress_grads else ()   # residuals shadow m
+    return TrainState(ps, os_, ef)
+
+
+def _on_mesh(mesh, rt: RuntimeConfig, fn: Callable) -> Callable:
+    def run(*args):
+        with mesh_hint(mesh, rt.flags), implicit_replication():
+            return fn(*args)
+    return run
+
+
+def shard_train_step(model: Model, mesh, rt: RuntimeConfig, state_like: TrainState,
+                     batch_like: dict):
+    """``repro``'s ``jit_train_step``: returns (step, state_shardings,
+    batch_shardings). ``step(state, batch) -> (state, metrics)`` takes the
+    state laid out by ``distribute_tree(mesh, state, state_shardings)`` and
+    a batch of full tensors (the same on every rank) or of DTensors; the
+    metrics are DTensors."""
+    st_sh = train_state_shardings(mesh, state_like, rt)
+    b_sh = sh.batch_shardings(mesh, batch_like)
+    raw = _on_mesh(mesh, rt, make_train_step(model, rt))
+
+    def step(state: TrainState, batch):
+        return raw(state, distribute_tree(mesh, batch, b_sh))
+
+    return step, st_sh, b_sh
+
+
+def shard_prefill(model: Model, mesh, rt: RuntimeConfig, S_max: int, params_like,
+                  batch_like, cache_like):
+    """``repro``'s ``jit_prefill``: returns (prefill, param_shardings,
+    batch_shardings, cache_shardings). ``prefill(params, batch) -> (logits,
+    cache)`` fills a zero cache laid out by the cache rule (KV sequence over
+    "model")."""
+    p_sh = sh.param_shardings(mesh, params_like)
+    b_sh = sh.batch_shardings(mesh, batch_like)
+    c_sh = sh.cache_shardings(mesh, cache_like)
+
+    def prefill(params, batch):
+        batch = distribute_tree(mesh, batch, b_sh)
+        B = batch["tokens"].shape[0]
+        dev = leaves(params)[0].device
+        cache = distribute_tree(mesh, model.init_cache(B, S_max, dev), c_sh)
+        return model.prefill(params, batch, S_max, cache=cache)
+
+    return _on_mesh(mesh, rt, prefill), p_sh, b_sh, c_sh
+
+
+def shard_decode_step(model: Model, mesh, rt: RuntimeConfig, params_like, cache_like,
+                      batch_like):
+    """``repro``'s ``jit_decode_step``: returns (decode, param_shardings,
+    cache_shardings, batch_shardings). Under the "dp_decode" flag the params
+    are replicated (small-model serving: batch sharding only)."""
+    if "dp_decode" in rt.flags:
+        p_sh = sh.replicated(mesh, params_like)
+    else:
+        p_sh = sh.param_shardings(mesh, params_like)
+    c_sh = sh.cache_shardings(mesh, cache_like)
+    b_sh = sh.batch_shardings(mesh, batch_like)
+    raw = make_decode_step(model, rt)
+
+    def decode(params, cache, batch):
+        return raw(params, cache, distribute_tree(mesh, batch, b_sh))
+
+    return _on_mesh(mesh, rt, decode), p_sh, c_sh, b_sh

@@ -20,7 +20,8 @@ gemma3 and zamba2 training shapes, one launch and two; one gemma3 block and
 one zamba2 group training on the card against the CPU; Whisper's attention
 cases (non-causal, S queries against T keys, T 1500) in the flash forward,
 lse and backward and the decode kernel, and the smoke xLSTM and Whisper
-serving and training on the card against the CPU. Every test here
+serving and training on the card against the CPU; the decode kernel's lse
+output at the qwen3-14b and gemma3 global decode shapes and kv_len 0. Every test here
 carries the ``cuda`` marker and skips without a card. The file imports no JAX,
 so it runs where only PyTorch is installed:
 
@@ -780,3 +781,29 @@ def test_xlstm_and_whisper_train_on_card_match_cpu(cuda_card, arch):
     assert abs(float(loss) - float(host_loss)) < 1e-4
     for a, b in zip(leaves(grads), leaves(host_grads)):
         assert _rel_err(a.cpu(), b) < 1e-4
+
+
+@ATTN_DTYPE
+@pytest.mark.parametrize("shape", [(8, 40, 8, 128, 544), (8, 16, 8, 256, 1568)],
+                         ids=["qwen3-14b", "gemma3-global"])
+@pytest.mark.parametrize("kv_len", ["full", 37, 0])
+def test_decode_kernel_lse_on_card(cuda_card, shape, kv_len, dtype):
+    """The decode kernel's per-row lse (written by its combine pass) against
+    the plain version at qwen3-14b's and gemma3-12b's global decode shapes;
+    kv_len 0 gives zeros and -inf, without NaN."""
+    B, H, K, hd, T = shape
+    n = T - 3 if kv_len == "full" else kv_len
+    td, tol = DTYPES[dtype], TOL[dtype]
+    q, k, v = _card_inputs(cuda_card, [(B, 1, H, hd), (B, T, K, hd), (B, T, K, hd)], td, 31)
+    kl = torch.tensor(n, dtype=torch.int32, device=cuda_card)
+    out, lse = decode_attention_cuda(q, k, v, kv_len=kl, return_lse=True)
+    want_out, want_lse = decode_attention_plain(q, k, v, kv_len=kl, return_lse=True)
+    assert lse.dtype == torch.float32 and lse.shape == (B, H)
+    torch.testing.assert_close(out, want_out, atol=tol, rtol=tol)
+    if n == 0:
+        assert torch.isneginf(lse).all() and not torch.isnan(out).any()
+        assert torch.equal(out, torch.zeros_like(out))
+    else:
+        torch.testing.assert_close(lse, want_lse, atol=tol, rtol=tol)
+    # the output alone is unchanged by asking for the lse
+    torch.testing.assert_close(decode_attention_cuda(q, k, v, kv_len=kl), out, atol=0, rtol=0)

@@ -421,7 +421,8 @@ def test_decode_argument_packing_matches_c(dtype):
     scratch = torch.empty(da.scratch_numel(B, H, hd, nsplit))
     assert scratch.numel() == 2 * B * H * nsplit + B * H * nsplit * hd
     out = torch.empty_like(q)
-    packs = [da._fwd_args(q, k, k, torch.tensor(n, dtype=torch.int32), out, scratch, 64, chunk, 7)
+    packs = [da._fwd_args(q, k, k, torch.tensor(n, dtype=torch.int32), out, None, scratch, 64,
+                          chunk, 7)
              for n in (1, 99)]
     names = [n for _, n in _c_params("decode_attention.cu", "decode_attention_fwd")]
     assert len(packs[0]) == len(names) == len(da._SIGNATURES["decode_attention_fwd"])
@@ -430,8 +431,13 @@ def test_decode_argument_packing_matches_c(dtype):
     assert (got["window"], got["chunk"], got["stream"]) == (64, chunk, 7)
     assert got["dtype"] == da.DTYPE_CODES[dtype]
     assert got["part"] == scratch.data_ptr() and got["o"] == out.data_ptr()
+    assert got["lse"] is None                     # a null pointer: no lse asked for
     differ = [n for n, a, b in zip(names, *packs) if a != b]
     assert differ == ["kv_len"]
+    lse = torch.empty(B, H)
+    with_lse = dict(zip(names, da._fwd_args(q, k, k, torch.tensor(1, dtype=torch.int32), out,
+                                            lse, scratch, 64, chunk, 7)))
+    assert with_lse["lse"] == lse.data_ptr()
 
 
 def _csrc_copy(tmp_path, monkeypatch):
@@ -473,3 +479,52 @@ def test_build_sources_are_the_cu_files(tmp_path, monkeypatch):
     for name in build.sources():
         want = [csrc / "sm90.cuh"] if name.startswith("flash") else []
         assert build._local_includes(csrc / f"{name}.cu") == want
+
+
+@pytest.mark.parametrize("window", [None, 48])
+@pytest.mark.parametrize("kv_len", [1, 37, 100])
+def test_decode_attention_plain_lse(kv_len, window):
+    """The lse output is the log-sum-exp of each row's scaled scores over
+    its valid columns, float32 (B, H)."""
+    B, H, K, hd, T = 2, 8, 4, 64, 100
+    g = torch.Generator().manual_seed(5)
+    q, k, v = (torch.randn(s, generator=g) for s in [(B, 1, H, hd), (B, T, K, hd), (B, T, K, hd)])
+    kl = torch.tensor(kv_len, dtype=torch.int32)
+    out, lse = decode_attention_plain(q, k, v, kv_len=kl, window=window, return_lse=True)
+    torch.testing.assert_close(out, decode_attention_plain(q, k, v, kv_len=kl, window=window))
+    lo = 0 if window is None else max(0, kv_len - window)
+    s = torch.einsum("bhd,bthd->bht", q[:, 0], k.repeat_interleave(H // K, dim=2))[..., lo:kv_len]
+    want = torch.logsumexp(s.double() * hd ** -0.5, dim=-1)
+    assert lse.dtype == torch.float32 and lse.shape == (B, H)
+    torch.testing.assert_close(lse.double(), want, atol=1e-5, rtol=1e-5)
+
+
+def test_decode_attention_plain_empty_cache():
+    """kv_len 0: output 0 and lse -inf, no NaN (what a rank holding none of
+    the valid rows of a sequence-sharded cache gives the merge)."""
+    q, k = torch.randn(2, 1, 4, 32), torch.randn(2, 16, 2, 32)
+    out, lse = decode_attention_plain(q, k, k, kv_len=torch.tensor(0, dtype=torch.int32),
+                                      return_lse=True)
+    assert torch.equal(out, torch.zeros_like(out))
+    assert torch.isneginf(lse).all()
+
+
+@pytest.mark.parametrize("kv_len", [5, 40, 64, 79])
+def test_decode_attention_lse_merge_of_two_shards(kv_len):
+    """Two halves of the cache, each with its local kv_len clamped into
+    [0, T/2], merged by their lse: one pass over the whole cache (the merge
+    ``kernels/sharded.py`` does across ranks)."""
+    B, H, K, hd, T = 2, 8, 2, 64, 80
+    g = torch.Generator().manual_seed(6)
+    q, k, v = (torch.randn(s, generator=g) for s in [(B, 1, H, hd), (B, T, K, hd), (B, T, K, hd)])
+    whole = decode_attention_plain(q, k, v, kv_len=torch.tensor(kv_len))
+    parts = []
+    for r in range(2):
+        n = torch.clamp(torch.tensor(kv_len) - r * (T // 2), 0, T // 2).to(torch.int32)
+        sl = slice(r * (T // 2), (r + 1) * (T // 2))
+        parts.append(decode_attention_plain(q, k[:, sl], v[:, sl], kv_len=n, return_lse=True))
+    lse = torch.stack([p[1] for p in parts])
+    m = lse.max(0).values
+    w = torch.exp(lse - m)
+    merged = sum(p[0] * w[i][:, None, :, None] for i, p in enumerate(parts)) / w.sum(0)[:, None, :, None]
+    torch.testing.assert_close(merged, whole, atol=1e-6, rtol=1e-6)

@@ -79,6 +79,15 @@ Phases, each printing one JSON line to stdout:
              S 2048, and whisper-tiny (all layers, zero frames) at B 4, S 448,
              remat "full": a warm-up step, then 5 timed steps on Loader
              batches
+  cost       the dry-run (``repro_torch.launch.dryrun``, in a child process on
+             CPU fakes, a fake world of 1, started at the outset) of the train
+             full phase's phi4-mini-3.8b (8 layers) and gemma3-12b (6 layers)
+             at B 4, S 2048, remat "full", beside that phase's mean step and
+             peak memory: the predicted peak (argument + temp bytes) within
+             20% of ``max_memory_allocated``, and no step faster than its
+             ``compute_s`` (the step's counted flops at the bf16 peak); the
+             model flops' share of that peak in the step is printed as a
+             reading, not a gate
   mesh       the mesh steps (``runtime.parallel.shard_*``) on an NCCL
              world of 1 in this process, mesh (data 1, model 1), everything a
              DTensor and the kernels on local shards: qwen3-14b at all 40
@@ -112,10 +121,6 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
-# bf16 and TF32 on the tensor cores; float32 outside them (NVIDIA data sheet,
-# SXM, dense)
-PEAK_FLOPS = {"bfloat16": 989e12, "tf32": 495e12, "float32": 67e12}
 TOL = {"bfloat16": 2e-2, "float32": 2e-5}
 # backward kernels, as a share of each output's max|grad|: bf16 as
 # tests/test_kernels.py:22; float32 looser than 2e-5 because dq is summed by
@@ -216,12 +221,15 @@ def copies_for(nbytes: int) -> int:
 
 
 def bound_parts(nbytes: float, flops, dtype: str) -> tuple[float, float]:
-    """Least ms for the bytes at the HBM rate and for the flops at the peak:
-    ``flops`` is a count at ``dtype``'s peak, or ``{rate: count}`` for work
-    that runs at several (keys of PEAK_FLOPS)."""
+    """Least ms for the bytes at the HBM rate and for the flops at the peak
+    (``core.perfmodel.H100``): ``flops`` is a count at ``dtype``'s peak, or
+    ``{rate: count}`` for work that runs at several ("bfloat16" and "tf32"
+    on the tensor cores, "float32" outside them)."""
+    from repro_torch.core.perfmodel import H100
+    peak = {"bfloat16": H100.peak_flops_bf16, "tf32": H100.peak_flops_tf32,
+            "float32": H100.peak_flops_fp32}
     work = flops if isinstance(flops, dict) else {dtype: flops}
-    return (nbytes / HBM_BYTES_PER_S * 1e3,
-            sum(n / PEAK_FLOPS[k] for k, n in work.items()) * 1e3)
+    return (nbytes / H100.hbm_bw * 1e3, sum(n / peak[k] for k, n in work.items()) * 1e3)
 
 
 def bound(nbytes: float, flops, dtype: str) -> tuple[float, str]:
@@ -1142,10 +1150,11 @@ def run_train_staged_phase(torch, arch: str) -> dict:
     return got
 
 
-def run_train_full_phase(torch, arch: str) -> dict:
+def run_train_full_phase(torch, arch: str, stats: dict | None = None) -> dict:
     """``arch`` at full width, ``TRAIN_LAYERS[arch]`` layers, bf16 params,
     fp32 AdamW state, B 4, S 2048, remat "full": one warm-up step, then
-    TRAIN_STEPS timed steps on Loader batches."""
+    TRAIN_STEPS timed steps on Loader batches. ``stats[arch]``, where given,
+    takes the mean step ms and the peak memory."""
     from repro_torch.configs import get_config
     from repro_torch.data import DatasetSpec, Loader
     from repro_torch.kernels import ops
@@ -1186,13 +1195,16 @@ def run_train_full_phase(torch, arch: str) -> dict:
                       "peak_memory_bytes": torch.cuda.max_memory_allocated()})
     got = dict(ops.LAUNCHES)
     mean_ms = sum(x["step_ms"] for x in steps) / len(steps)
+    peak = max(x["peak_memory_bytes"] for x in steps)
+    if stats is not None:
+        stats[arch] = {"mean_step_ms": mean_ms, "peak_memory_bytes": peak}
     emit({"phase": "train full",
           "cfg": f"{arch} {cfg.n_layers} of {full.n_layers} layers bf16, fp32 AdamW",
           "params": n_params, "init_s": init_s, "B": TRAIN_B, "S": seq,
           **({"frames": cfg.encoder_seq} if cfg.family == "audio" else {}),
           "remat": rt.remat, "steps": steps, "mean_step_ms": mean_ms,
           "mean_tokens_per_s": TRAIN_B * seq / mean_ms * 1e3,
-          "peak_memory_bytes": max(x["peak_memory_bytes"] for x in steps), "launches": got})
+          "peak_memory_bytes": peak, "launches": got})
     if not all(math.isfinite(x["loss"]) and x["grad_norm"] > 0 for x in steps):
         raise AssertionError(f"train full {arch}: a non-finite loss or a zero grad norm")
     check_launches(got, expected_train_launches(cfg, TRAIN_STEPS, 0, True),
@@ -1368,6 +1380,93 @@ def _mesh_train(torch, mesh) -> dict:
     return got
 
 
+# -- the cost phase --------------------------------------------------------------
+COST_ARCHS = (PHI, GEM)
+COST_PEAK_TOL = 0.2
+
+
+def dryrun_child(out_path: str) -> int:
+    """In a process of its own (``python3 chip_smoke.py --dryrun OUT``): the
+    dry-run (``launch.dryrun.run_cell``) of the train full phase's cut
+    configs of ``COST_ARCHS`` at B 4, S 2048, remat "full", on a fake world
+    of 1, mesh (data 1, model 1). CPU fakes only; the records go to
+    ``out_path`` as one JSON list."""
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.launch.dryrun import run_cell
+    from repro_torch.launch.mesh import init_fake_world, make_smoke_mesh
+    init_fake_world(1)
+    mesh = make_smoke_mesh(1, 1, "cpu")
+    shape = ShapeSpec(f"train_{TRAIN_S}", TRAIN_S, TRAIN_B, "train")
+    recs = [run_cell(dataclasses.replace(get_config(arch), n_layers=TRAIN_LAYERS[arch]), shape,
+                     variant="accum=1,remat=full", mesh=mesh,
+                     out_dir=os.path.join(os.path.dirname(out_path), "records"))
+            for arch in COST_ARCHS]
+    with open(out_path, "w") as f:
+        json.dump(recs, f)
+    return 0
+
+
+@contextlib.contextmanager
+def dryrun_child_running(out_dir: str):
+    """The cost phase's dry-run, started at once so that it runs on the
+    host's CPU while the card works, and stopped on the way out. Yields
+    (process, path of its records, path of its log)."""
+    os.makedirs(out_dir, exist_ok=True)
+    out, log_path = (os.path.join(out_dir, n) for n in ("cost_records.json", "dryrun.log"))
+    with open(log_path, "w") as log_f:
+        proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--dryrun", out],
+                                stdout=log_f, stderr=subprocess.STDOUT)
+    try:
+        yield proc, out, log_path
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+        proc.wait()
+
+
+def run_cost_phase(child, measured: dict) -> None:
+    """Each dry-run record beside the train full phase's measurement of the
+    same config and shape: the predicted peak (argument + temp bytes) within
+    ``COST_PEAK_TOL`` of ``max_memory_allocated``, and no measured step
+    faster than ``compute_s`` (all the step's flops at the bf16 peak), which
+    would mean a flop count too low. The share of the bf16 peak that the
+    model's flops reach in the measured step is a reading, not a gate."""
+    proc, path, log_path = child
+    rc = proc.wait(timeout=600)
+    if rc != 0:
+        with open(log_path) as f:
+            raise AssertionError(f"cost: the dry-run child exited with {rc}:\n"
+                                 f"{f.read()[-4000:]}")
+    with open(path) as f:
+        records = json.load(f)
+    from repro_torch.core.perfmodel import H100
+    for arch, rec in zip(COST_ARCHS, records):
+        got = measured[arch]
+        mem = rec["memory"]
+        predicted = mem["argument_bytes"] + mem["temp_bytes"]
+        peak_err = abs(predicted - got["peak_memory_bytes"]) / got["peak_memory_bytes"]
+        step_s = got["mean_step_ms"] / 1e3
+        compute_s = rec["terms"]["compute_s"]
+        emit({"phase": "cost", "cfg": f"{arch} {TRAIN_LAYERS[arch]} layers bf16, fp32 AdamW",
+              "B": TRAIN_B, "S": TRAIN_S, "remat": "full", "mesh": rec["mesh"],
+              "trace_s": rec["trace_s"], "alg_flops": rec["alg_flops_global"],
+              "alg_dot_bytes": rec["alg_dot_bytes_global"], "alg_bytes": rec["alg_bytes_global"],
+              "model_flops": rec["model_flops_global"], "terms": rec["terms"],
+              "argument_bytes": mem["argument_bytes"], "temp_bytes": mem["temp_bytes"],
+              "predicted_peak_bytes": predicted,
+              "peak_memory_bytes": got["peak_memory_bytes"], "peak_rel_err": peak_err,
+              "mean_step_ms": got["mean_step_ms"], "compute_ms": compute_s * 1e3,
+              "step_over_compute": step_s / compute_s,
+              "reading_model_flops_share_of_bf16_peak":
+                  rec["model_flops_global"] / (step_s * H100.peak_flops_bf16)})
+        if peak_err > COST_PEAK_TOL:
+            raise AssertionError(f"cost {arch}: predicted peak {predicted} B is {peak_err:.1%} "
+                                 f"off the measured {got['peak_memory_bytes']} B")
+        if step_s < compute_s:
+            raise AssertionError(f"cost {arch}: the measured step ({step_s} s) is faster than "
+                                 f"its flops at the bf16 peak ({compute_s} s)")
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -1428,6 +1527,17 @@ def main() -> int:
         log(f"chip_smoke: the port is not here ({e}); run from the repository root")
         return 2
     resolve_device("cuda")
+    from repro_torch.core.perfmodel import H100
+    props = torch.cuda.get_device_properties(0)
+    if (props.multi_processor_count, props.total_memory) != (H100.n_sms, H100.hbm_bytes):
+        raise RuntimeError(f"the card ({props.name}: {props.multi_processor_count} SMs, "
+                           f"{props.total_memory} B) is not the H100 profile's "
+                           f"({H100.n_sms} SMs, {H100.hbm_bytes} B)")
+    with dryrun_child_running(os.path.join(ROOT, "build", "dryrun")) as child:
+        return run_phases(torch, build, child)
+
+
+def run_phases(torch, build, child) -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True, timeout=60).stdout.strip().splitlines()[0]
@@ -1470,14 +1580,16 @@ def main() -> int:
                   ZAMBA: dict(n_layers=7, n_batch=1, optimizer=False, oracle64=True),
                   XL: dict(n_layers=8, n_batch=1, optimizer=False),
                   WH: dict(n_layers=4)}
+    measured = {}
     for arch, ref_kw in references.items():
-        for name, phase in (("train reference", run_train_reference_phase),
-                            ("train staged", run_train_staged_phase),
-                            ("train full", run_train_full_phase)):
+        for name, phase, kw in (("train reference", run_train_reference_phase, ref_kw),
+                                ("train staged", run_train_staged_phase, {}),
+                                ("train full", run_train_full_phase, {"stats": measured})):
             torch.cuda.empty_cache()
-            kw = ref_kw if name == "train reference" else {}
             launches[f"{name} {arch}"] = phase(torch, arch, **kw)
             log(f"chip_smoke: {name} {arch} done at {time.perf_counter() - t_start:.1f} s")
+    run_cost_phase(child, measured)
+    log(f"chip_smoke: cost phase done at {time.perf_counter() - t_start:.1f} s")
 
     torch.cuda.empty_cache()
     launches.update(run_mesh_phase(torch))
@@ -1492,4 +1604,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dryrun"]:
+        sys.exit(dryrun_child(sys.argv[2]))
     sys.exit(main())

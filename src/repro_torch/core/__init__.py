@@ -9,6 +9,8 @@ from .kvstore import EphemeralKV
 from .perfmodel import (
     BWResult,
     FSDeployment,
+    GPUProfile,
+    H100,
     TPU_V5E,
     TPUProfile,
     Workload,
@@ -50,7 +52,7 @@ from .striping import Extent, StripeConfig, bytes_per_target, extents_for_range
 __all__ = [
     "FSClient", "DataManager", "FSError", "FileStat", "ServiceInfo",
     "CacheSim", "EphemeralFS", "EphemeralKV", "GlobalFS",
-    "BWResult", "FSDeployment", "TPU_V5E", "TPUProfile", "Workload",
+    "BWResult", "FSDeployment", "GPUProfile", "H100", "TPU_V5E", "TPUProfile", "Workload",
     "ault_efs", "dom_efs", "dom_lustre", "hacc_workload",
     "predict", "predict_deploy_time", "predict_mdtest", "predict_read", "predict_write",
     "Deployment", "DeploymentPlan", "Provisioner",

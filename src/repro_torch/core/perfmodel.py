@@ -377,3 +377,27 @@ class TPUProfile:
 
 
 TPU_V5E = TPUProfile()
+
+
+# --------------------------------------------------------------------------
+# GPU hardware profile: one NVIDIA H100 SXM (the port's card)
+# --------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class GPUProfile:
+    name: str = "h100-sxm"
+    peak_flops_bf16: float = 989e12     # dense, tensor cores (NVIDIA data sheet, SXM)
+    peak_flops_tf32: float = 495e12     # dense, tensor cores
+    peak_flops_fp32: float = 67e12      # outside the tensor cores
+    hbm_bw: float = 3.35e12             # B/s, HBM3
+    # NVLink 4: 18 links x 25 GB/s = 450 GB/s in each direction (the 900 GB/s
+    # usually quoted sums both). A GPU's collective result bytes cross its
+    # links in one direction, so collective_s divides them by this rate, as
+    # the TPU profile's ici_link_bw is used.
+    nvlink_bw: float = 450e9
+    n_sms: int = 132
+    # torch.cuda.get_device_properties(0).total_memory of an
+    # "NVIDIA H100 80GB HBM3"
+    hbm_bytes: float = 85_017_493_504
+
+
+H100 = GPUProfile()

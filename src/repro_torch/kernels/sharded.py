@@ -27,6 +27,14 @@ version. Which placements each kernel takes:
   read back to the host.
 * ``ssd_intra_chunk`` (and its backward): batch and heads only.
 
+Three PyTorch (not kernel) computations need the same care and are here:
+``depthwise_conv`` (Mamba2's and the mLSTM's causal conv: batch over any
+mesh dim, channels over one where the weight's channels are sharded; it is
+channel-wise, so a replicated operand is cut to the other's channel shard,
+and the weight's gradient is a partial sum over the mesh dims that shard
+the batch), ``batch_heads`` (work that treats every batch row and head
+apart) and ``elementwise`` (an op DTensor has no rule for).
+
 Any other placement raises, naming the placements: nothing gathers
 silently, and the card never falls back to a plain version.
 
@@ -256,6 +264,72 @@ def ssd_intra_chunk(la: DTensor, C, B_in, x, *, local: Callable):
                                        x.placements),
                    device_mesh=mesh)
     return fn(la, C, B_in, x)
+
+
+# -- an elementwise op without a DTensor rule -----------------------------------
+def elementwise(fn: Callable, x: DTensor) -> DTensor:
+    """``fn`` (elementwise, e.g. ``F.logsigmoid``, for which DTensor has no
+    sharding rule) on each rank's shard, in x's placements."""
+    if any(isinstance(p, Partial) for p in x.placements):
+        raise _refuse("elementwise", x=x)
+    return local_map(fn, out_placements=list(x.placements), in_placements=(x.placements,),
+                     device_mesh=x.device_mesh)(x)
+
+
+# -- per (batch row, head) work ----------------------------------------------------
+def batch_heads(fn: Callable, tensors: tuple, heads: tuple, out_heads: tuple) -> tuple:
+    """``fn(*local tensors) -> tuple`` on each rank's batch and head shards:
+    ``fn`` treats every (batch row, head) apart (the mLSTM's chunks, whose
+    einsums over both would make DTensor flatten two sharded dims). Each
+    tensor has its batch at dim 0 and its heads at ``heads[i]``, each output
+    at ``out_heads[j]``. ``tensors[0]`` sets the layout (batch or heads over
+    each mesh dim); the others are redistributed to it."""
+    lead, mesh = tensors[0], tensors[0].device_mesh
+    plan = []
+    for p in lead.placements:
+        d = _shard_dim(p)
+        if isinstance(p, Partial) or d not in (None, 0, heads[0]):
+            raise _refuse("batch_heads", lead=lead)
+        plan.append(d if d is None else d == 0)
+
+    def placed(h: int) -> list:
+        return [Replicate() if k is None else Shard(0) if k else Shard(h) for k in plan]
+
+    ins = []
+    for t, h in zip(tensors, heads):
+        t, want = _as_dtensor(t, mesh), placed(h)
+        ins.append(t if tuple(t.placements) == tuple(want) else t.redistribute(mesh, want))
+    fn_l = local_map(fn, out_placements=tuple(placed(h) for h in out_heads),
+                     in_placements=tuple(placed(h) for h in heads), device_mesh=mesh)
+    return fn_l(*ins)
+
+
+# -- depthwise causal conv ----------------------------------------------------
+def depthwise_conv(x: DTensor, w, b, *, local: Callable) -> DTensor:
+    """x (B, S, Ch), w (W, Ch), b (Ch,): ``local(x, w, b)`` on each rank's
+    batch and channel shards."""
+    mesh = x.device_mesh
+    w, b = _as_dtensor(w, mesh), _as_dtensor(b, mesh)
+    xp, wp, grad = [], [], []
+    for px, pw, pb in zip(x.placements, w.placements, b.placements):
+        dx, dw, db = _shard_dim(px), _shard_dim(pw), _shard_dim(pb)
+        if any(isinstance(p, Partial) for p in (px, pw, pb)) or dx == 1 or dw == 0 \
+                or (dw == 1) != (db == 0) or (dx == 0 and dw == 1):
+            raise _refuse("depthwise_conv", x=x, w=w, b=b)
+        channels = dx == 2 or dw == 1
+        xp.append(Shard(2) if channels else px)
+        wp.append(Shard(1) if channels else Replicate())
+        grad.append(Partial() if dx == 0 else wp[-1])
+    if tuple(xp) != tuple(x.placements):
+        x = x.redistribute(mesh, xp)
+    bp = [Shard(0) if isinstance(p, Shard) else p for p in wp]
+    if tuple(wp) != tuple(w.placements):
+        w, b = w.redistribute(mesh, wp), b.redistribute(mesh, bp)
+    bgrad = [Shard(0) if isinstance(p, Shard) else p for p in grad]
+    fn = local_map(lambda a, ww, bb: local(_cg(a), _cg(ww), _cg(bb)), out_placements=xp,
+                   in_placements=(xp, wp, bp), in_grad_placements=(xp, grad, bgrad),
+                   device_mesh=mesh)
+    return fn(x, w, b)
 
 
 # -- cache writes on a sequence-sharded cache ---------------------------------

@@ -6,7 +6,8 @@ the CUDA kernels on the card, their plain versions on the CPU. ``sdpa`` is
 the plain reference the tests hold the kernels' plain versions to. On the
 CPU a prefill of ``BLOCKWISE_THRESHOLD`` or more positions runs
 ``blockwise_sdpa``, as ``repro`` does without kernels, so that no (S, T)
-score matrix is built there; the card keeps the flash kernel.
+score matrix is built there (a sharded step's on each rank's local shards,
+through the flash kernel's layout rules); the card keeps the flash kernel.
 
 The ring cache of gemma3's local layers keeps position p at slot p % W
 from the start (``transformer.prefill`` fills it so), so after the write of
@@ -143,7 +144,7 @@ def blockwise_sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal:
     return torch.cat(outs, dim=1)
 
 
-def _heads(y: torch.Tensor, n: int, hd: int) -> torch.Tensor:
+def split_heads(y: torch.Tensor, n: int, hd: int) -> torch.Tensor:
     """(B, S, n*hd) -> (B, S, n, hd) in ``repro``'s head-aligned layout:
     heads over "model" where it divides n, else replicated (never a split
     head dim). Under a mesh hint a DTensor's flat dim is first made whole
@@ -155,6 +156,16 @@ def _heads(y: torch.Tensor, n: int, hd: int) -> torch.Tensor:
             and hint_spec(mesh, (B, S, n, hd), ("dp", None, "model", None))[2] is None:
         y = constrain(y, "dp", None, None)
     return constrain(y.reshape(B, S, n, hd), "dp", None, "model", None)
+
+
+def _flat(out: torch.Tensor) -> torch.Tensor:
+    """(B, S, H, hd) -> (B, S, H*hd), laid out for the row-sharded output
+    projection (flat dim over "model"). Where "model" does not divide H the
+    heads are whole on every rank, and the projection's gradient, sharded
+    over the flat dim, could not be viewed back as heads: made whole at
+    this step of the backward instead (a slice forward, a gather back)."""
+    B, S, H, hd = out.shape
+    return constrain(out.reshape(B, S, H * hd), "dp", None, "model")
 
 
 def attention(
@@ -194,7 +205,7 @@ def attention(
     """
     B, S, d = x.shape
     H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    q = _heads(dense(p["wq"], x), H, hd)
+    q = split_heads(dense(p["wq"], x), H, hd)
     if kv_override is not None:
         if cfg.qk_norm:
             q = head_rmsnorm(p["q_norm"], q, cfg.norm_eps)
@@ -204,10 +215,10 @@ def attention(
             out = ops.decode_attention(q, k, v, kv_len=kv_len)
         else:
             out = ops.flash_attention(q, k, v, causal=False)
-        return dense(p["wo"], out.reshape(B, S, H * hd)), None
+        return dense(p["wo"], _flat(out)), None
 
-    k = _heads(dense(p["wk"], x), K, hd)
-    v = _heads(dense(p["wv"], x), K, hd)
+    k = split_heads(dense(p["wk"], x), K, hd)
+    v = split_heads(dense(p["wv"], x), K, hd)
 
     if cfg.qk_norm:
         q = head_rmsnorm(p["q_norm"], q, cfg.norm_eps)
@@ -219,7 +230,10 @@ def attention(
         k = apply_rope(k, cos, sin)
 
     if cache is None:
-        if q.device.type == "cpu" and S >= BLOCKWISE_THRESHOLD:
+        if q.device.type == "cpu" and S >= BLOCKWISE_THRESHOLD and isinstance(q, DTensor):
+            out = sharded.flash_attention(q, k, v, causal=causal, window=window,
+                                          local=blockwise_sdpa)
+        elif q.device.type == "cpu" and S >= BLOCKWISE_THRESHOLD:
             out = blockwise_sdpa(q, k, v, causal=causal, window=window)
         else:
             out = ops.flash_attention(q, k, v, causal=causal, window=window)
@@ -244,6 +258,6 @@ def attention(
         out = ops.decode_attention(q, cache.k, cache.v, kv_len=kv_len, window=window)
         new_cache = cache
 
-    y = dense(p["wo"], out.reshape(B, S, H * hd))
+    y = dense(p["wo"], _flat(out))
     return y, new_cache
 

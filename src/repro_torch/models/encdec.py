@@ -25,10 +25,12 @@ from __future__ import annotations
 import functools
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from ..configs.base import ModelConfig
-from .attention import KVCache, attention, attn_init
-from .common import Model, remat_wrap, stack_init, unstack
+from ..kernels.sharded import cache_write_prefix
+from .attention import KVCache, attention, attn_init, split_heads
+from .common import Model, remat_wrap, serving, stack_init, unstack
 from .layers import (
     cross_entropy_loss,
     dense,
@@ -102,10 +104,9 @@ def encode(params, cfg: ModelConfig, frames: torch.Tensor, *, remat=None) -> tor
 
 def _cross_kv(lp, enc_out: torch.Tensor, cfg: ModelConfig):
     """The cross-attention's k/v of one decoder layer, (B, T, K, hd) each."""
-    B, T = enc_out.shape[:2]
     K, hd = cfg.n_kv_heads, cfg.hd
-    return (dense(lp["cross_attn"]["wk"], enc_out).reshape(B, T, K, hd),
-            dense(lp["cross_attn"]["wv"], enc_out).reshape(B, T, K, hd))
+    return (split_heads(dense(lp["cross_attn"]["wk"], enc_out), K, hd),
+            split_heads(dense(lp["cross_attn"]["wv"], enc_out), K, hd))
 
 
 def _dec_layer(lp, x, cfg: ModelConfig, *, positions, enc_kv, cache=None, cache_pos=None):
@@ -140,10 +141,13 @@ def loss_fn(params, batch, cfg: ModelConfig, *, remat=None):
     return ce, {"ce": ce, "aux": torch.zeros((), device=ce.device)}
 
 
-@torch.inference_mode()
-def prefill(params, batch, S_max: int, cfg: ModelConfig):
+@serving
+def prefill(params, batch, S_max: int, cfg: ModelConfig, *, cache=None):
     """Encode ``batch["frames"]``, run the prompt, return (last-position
-    logits, decode cache)."""
+    logits, decode cache). ``cache``, where given, is a zero cache of
+    ``init_cache``'s form to fill: the sharded prefill passes one laid out
+    on its mesh (the cross k/v copied into its layout, the self k/v written
+    by the rank holding each row)."""
     enc_out = encode(params, cfg, batch["frames"])
     tokens = batch["tokens"]
     x = embed(params["embed"], tokens)
@@ -151,20 +155,27 @@ def prefill(params, batch, S_max: int, cfg: ModelConfig):
     if S > S_max:
         raise ValueError(f"prompt length {S} > S_max {S_max}")
     positions = torch.arange(S, device=x.device)
-    cache = init_cache(cfg, B, S_max, x.device, enc_len=enc_out.shape[1])
+    if cache is None:
+        cache = init_cache(cfg, B, S_max, x.device, enc_len=enc_out.shape[1])
+    elif cache["ck"].shape[2] != enc_out.shape[1]:
+        raise ValueError(f"cache holds {cache['ck'].shape[2]} encoder rows, the frames "
+                         f"{enc_out.shape[1]}")
     for i, lp in enumerate(unstack(params["dec_layers"], cfg.n_layers)):
         ck, cv = _cross_kv(lp, enc_out, cfg)
         cache["ck"][i].copy_(ck)
         cache["cv"][i].copy_(cv)
         x, kv = _dec_layer(lp, x, cfg, positions=positions, enc_kv=(ck, cv))
-        cache["k"][i, :, :S] = kv.k
-        cache["v"][i, :, :S] = kv.v
+        for dst, src in ((cache["k"][i], kv.k), (cache["v"][i], kv.v)):
+            if isinstance(dst, DTensor):
+                cache_write_prefix(dst, src)
+            else:
+                dst[:, :S] = src
     h = norm(params["final_norm"], x, cfg.norm_eps)
     cache["pos"].fill_(S)
     return unembed(params["unembed"], h[:, -1]), cache
 
 
-@torch.inference_mode()
+@serving
 def decode_step(params, cache, batch, cfg: ModelConfig):
     """One token for every sequence. batch: {"token": (B,)}. Writes the
     self-attention k/v into the cache IN PLACE; returns (logits, cache with

@@ -18,10 +18,12 @@ from __future__ import annotations
 import functools
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from ..configs.base import ModelConfig
+from ..kernels.sharded import cache_write_prefix
 from .attention import KVCache, attention, attn_init
-from .common import Model, remat_wrap, stack_init, tree_map
+from .common import Model, remat_wrap, serving, stack_init, tree_map
 from .layers import (
     cross_entropy_loss,
     dtype_of,
@@ -117,14 +119,17 @@ def _mamba_slots(params, cfg: ModelConfig, cache):
                MambaCache(cache["t_conv"][i], cache["t_h"][i]), None)
 
 
-@torch.inference_mode()
-def prefill(params, batch, S_max: int, cfg: ModelConfig):
+@serving
+def prefill(params, batch, S_max: int, cfg: ModelConfig, *, cache=None):
     """Run the prompt, return (last-position logits, decode cache).
 
     The cache holds ``repro``'s keys: per mamba layer the raw conv tail and
     final SSM state (``g_conv``/``g_h`` (ng, gs, ...), ``t_conv``/``t_h``
     (tail, ...)), per shared-block site its k/v (``sk``/``sv``
     (ng, B, S_max, K, hd)), and ``pos`` (0-dim int32 on the device).
+    ``cache``, where given, is a zero cache of that form to fill: the
+    sharded prefill passes one laid out on its mesh (the states copied into
+    their layout, the k/v written by the rank holding each row).
     """
     tokens = batch["tokens"]
     x = embed(params["embed"], tokens)
@@ -132,22 +137,26 @@ def prefill(params, batch, S_max: int, cfg: ModelConfig):
     if S > S_max:
         raise ValueError(f"prompt length {S} > S_max {S_max}")
     positions = torch.arange(S, device=x.device)
-    cache = init_cache(cfg, B, S_max, x.device)
+    if cache is None:
+        cache = init_cache(cfg, B, S_max, x.device)
     for lp, slot, site in _mamba_slots(params, cfg, cache):
         x, state = _mamba_layer(lp, x, cfg)
         slot.conv.copy_(state.conv)
         slot.h.copy_(state.h)
         if site is not None:
             x, kv = _shared_apply(params["shared"], x, cfg, positions=positions)
-            cache["sk"][site, :, :S] = kv.k
-            cache["sv"][site, :, :S] = kv.v
+            for dst, src in ((cache["sk"][site], kv.k), (cache["sv"][site], kv.v)):
+                if isinstance(dst, DTensor):
+                    cache_write_prefix(dst, src)
+                else:
+                    dst[:, :S] = src
     h = norm(params["final_norm"], x, cfg.norm_eps)
     logits = _logits(params, h[:, -1])
     cache["pos"].fill_(S)
     return logits, cache
 
 
-@torch.inference_mode()
+@serving
 def decode_step(params, cache, batch, cfg: ModelConfig):
     """One token for every sequence. batch: {"token": (B,)}.
 

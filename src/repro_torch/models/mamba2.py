@@ -23,10 +23,11 @@ from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from ..configs.base import ModelConfig
 from ..hints import constrain
-from ..kernels import ops
+from ..kernels import ops, sharded
 from ..precision import compute_dtype, widen
 from .layers import dense, dense_init, norm
 
@@ -61,7 +62,10 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Ten
 
     ``repro``'s ``conv_general_dilated`` with WIO weights ``w[:, None, :]`` is a
     cross-correlation, which is what ``F.conv1d`` computes with the weight as
-    (Ch, 1, W) from ``w.T``."""
+    (Ch, 1, W) from ``w.T``. On a DTensor it runs on each rank's batch and
+    channel shards (``kernels.sharded.depthwise_conv``)."""
+    if isinstance(x, DTensor):
+        return sharded.depthwise_conv(x, w, b, local=_causal_conv)
     W = w.shape[0]
     xp = F.pad(x.transpose(1, 2), (W - 1, 0))
     out = F.conv1d(xp, w.t().unsqueeze(1), groups=x.shape[-1])
@@ -88,7 +92,8 @@ def ssd_chunked(x, dt, A, B_in, C_in, Q: int, h0=None):
         S = S + pad
     nc = S // Q
 
-    lac = widen(dt * A).reshape(Bsz, nc, Q, H).contiguous()             # log a_t
+    # log a_t, its heads laid out as x's (a slice where dt is whole)
+    lac = constrain(widen(dt * A).reshape(Bsz, nc, Q, H), "dp", None, None, "model").contiguous()
     xc = widen(dt[..., None] * x).reshape(Bsz, nc, Q, H, P).contiguous()
     Bc = widen(B_in).reshape(Bsz, nc, Q, N).contiguous()
     Cc = widen(C_in).reshape(Bsz, nc, Q, N).contiguous()

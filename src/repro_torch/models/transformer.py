@@ -213,22 +213,22 @@ def prefill(params, batch, S_max: int, cfg: ModelConfig, *, cache=None):
     if cache is None:
         cache = init_cache(cfg, B, S_max, device)
     if cfg.local_global_ratio:
-        first = max(0, S - cfg.sliding_window)          # the trailing min(S, W) positions
+        W = cfg.sliding_window
+        first = max(0, S - W)                           # the trailing min(S, W) positions
         kept = torch.arange(first, S, device=device)
-        slots = kept % cfg.sliding_window
-        cache["ring_pos"].index_copy_(0, slots, kept.to(torch.int32))
+        cache["ring_pos"].index_copy_(0, kept % W, kept.to(torch.int32))
 
     def keep(where, kv):
         dst = _layer_cache(cache, where)
-        if where[0] == "local":
-            dst.k.index_copy_(1, slots, kv.k[:, first:])
-            dst.v.index_copy_(1, slots, kv.v[:, first:])
-        elif isinstance(dst.k, DTensor):
-            cache_write_prefix(dst.k, kv.k)
-            cache_write_prefix(dst.v, kv.v)
-        else:
-            dst.k[:, :S] = kv.k
-            dst.v[:, :S] = kv.v
+        for d, src in ((dst.k, kv.k), (dst.v, kv.v)):
+            if where[0] == "local":
+                # position p at slot p % W: the kept rows rolled by first % W
+                # fill slots 0..min(S, W)-1, a prefix write
+                src = torch.roll(src[:, first:], first % W, dims=1)
+            if isinstance(d, DTensor):
+                cache_write_prefix(d, src)             # the rank holding each row
+            else:
+                d[:, :src.shape[1]] = src
     x, _ = _forward(params, cfg, x, torch.arange(S, device=device), keep=keep)
     h = norm(params["final_norm"], x, cfg.norm_eps)
     logits = _logits(params, h[:, -1])

@@ -27,10 +27,13 @@ from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from ..configs.base import ModelConfig
 from ..hints import constrain
+from ..kernels import sharded
 from ..precision import compute_dtype, widen
+from .attention import split_heads
 from .layers import dense, dense_init, norm
 from .mamba2 import _causal_conv
 
@@ -49,6 +52,14 @@ class SLSTMCache(NamedTuple):
     n: torch.Tensor
     m: torch.Tensor        # (B, H)
     h: torch.Tensor
+
+
+def _log_sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``F.logsigmoid``; on a DTensor, which has no rule for it, on the
+    local shards (``kernels.sharded.elementwise``)."""
+    if isinstance(x, DTensor):
+        return sharded.elementwise(F.logsigmoid, x)
+    return F.logsigmoid(x)
 
 
 def _ff_dim(d: int) -> int:
@@ -131,7 +142,16 @@ def _empty_carry(B: int, H: int, dh: int, dtype, device):
 def mlstm_core(q, k, v, log_f, log_i, Q: int, carry=None):
     """q, k, v: (B,S,H,dh); gates (B,S,H). Returns (h (B,S,H,dh) float32,
     carry). A prompt that is not a multiple of ``Q`` is padded with
-    identity steps (f = 1, i = 0), which leave the carry as it was."""
+    identity steps (f = 1, i = 0), which leave the carry as it was. On
+    DTensors it runs on each rank's batch and head shards
+    (``kernels.sharded.batch_heads``)."""
+    if isinstance(q, DTensor):
+        def local(*ts):
+            h, c = mlstm_core(*ts[:5], Q, ts[5:] or None)
+            return (h, *c)
+        ins = (q, k, v, log_f, log_i, *(carry or ()))
+        h, *c = sharded.batch_heads(local, ins, (2,) * 5 + (1,) * (len(ins) - 5), (2, 1, 1, 1))
+        return h, tuple(c)
     B, S, H, dh = q.shape
     cd = compute_dtype(q.dtype)
     q = q.to(cd) * (dh ** -0.5)
@@ -159,7 +179,14 @@ def _mlstm_decode(q, k, v, log_f, log_i, cache: MLSTMCache) -> torch.Tensor:
     gates (B,1,H). At one position the chunk's weights reduce to D =
     exp(log_i - m_t) and eg = exp(log_f + m - m_t), m_t = max(log_f + m, log_i),
     and the new carry is (eg C + D k v^T, eg n + D k, m_t): C is read once
-    for q.C and rewritten twice (scaled, then the outer product added)."""
+    for q.C and rewritten twice (scaled, then the outer product added). On
+    DTensors q, k, v and the gates are first laid out as the state is
+    (batch-local, whole over "model": their heads gathered), so that no
+    einsum sees both its batch and its heads sharded and the state is
+    updated where it lives."""
+    if isinstance(cache.C, DTensor):
+        q, k, v = (constrain(t, "dp", None, None, None) for t in (q, k, v))
+        log_f, log_i = (constrain(t, "dp", None, None) for t in (log_f, log_i))
     B, _, H, dh = q.shape
     cd = cache.C.dtype
     q = q[:, 0].to(cd) * (dh ** -0.5)
@@ -204,14 +231,14 @@ def mlstm_forward(p, x: torch.Tensor, cfg: ModelConfig, *, cache: MLSTMCache | N
         cx = F.silu(torch.einsum("bwc,wc->bc", window, p["conv_w"]) + p["conv_b"])[:, None]
         cache.conv.copy_(window[:, 1:, :])
 
-    q = constrain(dense(p["wq"], cx).reshape(B, S, H, dh), "dp", None, "model", None)
-    k = constrain(dense(p["wk"], cx).reshape(B, S, H, dh), "dp", None, "model", None)
-    v = constrain(dense(p["wv"], x_in).reshape(B, S, H, dh), "dp", None, "model", None)
+    q = split_heads(dense(p["wq"], cx), H, dh)
+    k = split_heads(dense(p["wk"], cx), H, dh)
+    v = split_heads(dense(p["wv"], x_in), H, dh)
     i_pre, f_pre = dense(p["w_gates"], widen(x_in)).chunk(2, dim=-1)    # (B,S,H) each
     if cache is None:
-        h, carry = mlstm_core(q, k, v, F.logsigmoid(f_pre), i_pre, cfg.ssm_chunk)
+        h, carry = mlstm_core(q, k, v, _log_sigmoid(f_pre), i_pre, cfg.ssm_chunk)
     else:
-        h = _mlstm_decode(q, k, v, F.logsigmoid(f_pre), i_pre, cache)
+        h = _mlstm_decode(q, k, v, _log_sigmoid(f_pre), i_pre, cache)
 
     # contiguous: after a padded last chunk h is a slice (the kernel takes rows)
     h = h.reshape(B, S, di).to(x.dtype).contiguous()
@@ -271,7 +298,7 @@ def slstm_cell(Rw: torch.Tensor, g_t: torch.Tensor, state: SLSTMCache) -> SLSTMC
     # one split (whose backward is one concatenation, where each slice's
     # would fill a zero tensor)
     z_pre, o_pre, i_t, f_pre = pre.split([dh, dh, 1, 1], dim=-1)       # i_t, f_pre (B, H, 1)
-    fm = F.logsigmoid(f_pre) + m[..., None]
+    fm = _log_sigmoid(f_pre) + m[..., None]
     m_new = torch.maximum(fm, i_t)
     i_s = torch.exp(i_t - m_new)
     f_s = torch.exp(fm - m_new)
@@ -290,7 +317,11 @@ def slstm_forward(p, x: torch.Tensor, cfg: ModelConfig, *, cache: SLSTMCache | N
     B, S, d = x.shape
     di, H, dh = _dims(cfg)
     xn = norm(p["in_norm"], x, cfg.norm_eps)
-    g = gate_inputs(dense(p["w_in"], xn).reshape(B, S, 4, H, dh))
+    # heads, not gates, over "model" (the gates are taken apart below): the
+    # flat dim made whole first, as its shards need not hold whole gates
+    xg = constrain(dense(p["w_in"], xn), "dp", None, None).reshape(B, S, 4, H, dh)
+    xg = constrain(xg, "dp", None, None, "model", None)
+    g = gate_inputs(xg)
     state = cache if cache is not None else empty_slstm_state(
         cfg, B, x.device, compute_dtype(x.dtype))
     Rw = recurrent_weight(p["R"])

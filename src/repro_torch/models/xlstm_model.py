@@ -23,9 +23,10 @@ from __future__ import annotations
 import functools
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from ..configs.base import ModelConfig
-from .common import Model, remat_wrap, stack_init, tree_map, unstack
+from .common import Model, remat_wrap, serving, stack_init, tree_map, unstack
 from .layers import cross_entropy_loss, dtype_of, embed, embed_init, norm, rmsnorm_init, unembed
 from .xlstm import (
     MLSTMCache,
@@ -110,14 +111,31 @@ def loss_fn(params, batch, cfg: ModelConfig, *, remat=None):
     return ce, {"ce": ce, "aux": torch.zeros((), device=ce.device)}
 
 
-@torch.inference_mode()
-def prefill(params, batch, S_max: int, cfg: ModelConfig):
+def _blocks_whole(cache):
+    """The cache with any DTensor state whose block dim (dim 0) is sharded
+    made whole over it. ``repro``'s cache rule puts "dp" on dim -3, which
+    for the sLSTM's m (nb, B, H) is the block dim; a block's state is read
+    and written on every rank, so that leaf (nb·B·H values) is gathered
+    once, and the cache returned keeps it whole."""
+    def whole(t):
+        if isinstance(t, DTensor) and any(isinstance(p, Shard) and p.dim == 0
+                                          for p in t.placements):
+            return t.redistribute(t.device_mesh, [Replicate() if isinstance(p, Shard)
+                                                  and p.dim == 0 else p for p in t.placements])
+        return t
+    return {**cache, "s": tuple(map(whole, cache["s"])), "m": tuple(map(whole, cache["m"]))}
+
+
+@serving
+def prefill(params, batch, S_max: int, cfg: ModelConfig, *, cache=None):
     """Run the prompt, return (last-position logits, decode cache): each
     layer's state after the prompt, written into a cache from
-    ``init_cache``. ``S_max`` is not needed by the recurrent state."""
+    ``init_cache`` (or into ``cache``, a zero cache of that form: the
+    sharded prefill passes one laid out on its mesh). ``S_max`` is not
+    needed by the recurrent state."""
     x = embed(params["embed"], batch["tokens"])
     B, S = batch["tokens"].shape
-    cache = init_cache(cfg, B, S_max, x.device)
+    cache = _blocks_whole(init_cache(cfg, B, S_max, x.device) if cache is None else cache)
     for b, (sp, mps) in enumerate(_layers(params, cfg)):
         x, s_state = slstm_forward(sp, x, cfg)
         for dst, src in zip(cache["s"], s_state):
@@ -131,11 +149,12 @@ def prefill(params, batch, S_max: int, cfg: ModelConfig):
     return _logits(params, h[:, -1]), cache
 
 
-@torch.inference_mode()
+@serving
 def decode_step(params, cache, batch, cfg: ModelConfig):
     """One token for every sequence. batch: {"token": (B,)}. Updates the
     cache's states IN PLACE (JAX returns a new cache) and returns (logits,
     cache with pos + 1)."""
+    cache = _blocks_whole(cache)
     x = embed(params["embed"], batch["token"][:, None])
     for b, (sp, mps) in enumerate(_layers(params, cfg)):
         x, _ = slstm_forward(sp, x, cfg, cache=SLSTMCache(*(t[b] for t in cache["s"])))

@@ -1,7 +1,9 @@
-"""Step functions, sharding rules and fault tolerance: the port of
-``src/repro/runtime/`` (the cost layer, ``costs.py``, is not ported yet).
-``repro``'s ``jit_*`` steps are ``shard_*`` here (``parallel.py``)."""
+"""Step functions, sharding rules, fault tolerance and cost extraction: the
+port of ``src/repro/runtime/``. ``repro``'s ``jit_*`` steps are ``shard_*``
+here (``parallel.py``); ``hlo_collective_bytes`` is ``collective_bytes``
+(``costs.py``)."""
 
+from .costs import collective_bytes, step_costs
 from .fault import FaultInjector, FaultSpec, HeartbeatMonitor, RestartPlan, plan_restart
 from .parallel import (
     RuntimeConfig,
@@ -27,6 +29,7 @@ from .sharding import (
 )
 
 __all__ = [
+    "collective_bytes", "step_costs",
     "FaultInjector", "FaultSpec", "HeartbeatMonitor", "RestartPlan", "plan_restart",
     "RuntimeConfig", "TrainState", "distribute_tree", "loss_and_grads",
     "make_decode_step", "make_prefill", "make_train_state", "make_train_step",

@@ -1,6 +1,7 @@
 """The port's mesh layer on gloo worlds on the CPU: the sharded train,
 prefill and decode steps of ``runtime/parallel.py`` held to the port's
-single-device steps, the MoE layouts to each other, and ``int8_allreduce``
+single-device steps (dense and MoE, and the hybrid, xLSTM, Whisper, gemma3
+and VLM families), the MoE layouts to each other, and ``int8_allreduce``
 to ``repro``'s.
 
 Each world (``tests/torch_mesh_worlds.py``) is spawned once by a
@@ -50,6 +51,11 @@ def serve_world(tmp_path_factory):
 @pytest.fixture(scope="module")
 def moe_world(tmp_path_factory):
     return _world("moe", tmp_path_factory)
+
+
+@pytest.fixture(scope="module")
+def families_world(tmp_path_factory):
+    return _world("families", tmp_path_factory)
 
 
 # -- (data 4, model 2), phi4 smoke ---------------------------------------------
@@ -189,3 +195,38 @@ def test_kernels_on_local_shards_match_plain(moe_world, kernel):
     for r in moe_world:
         res = r["local_kernels"][kernel]
         assert res["out"] < 1e-5 and res["grad"] < 1e-5, res
+
+
+# -- (data 2, model 2), the five families past dense and MoE, and head counts
+# that "model" does not divide ---------------------------------------------------
+def _family(world, case):
+    for r in world:
+        assert "error" not in r[case], r[case]["error"]
+    return [r[case] for r in world]
+
+
+@pytest.mark.parametrize("case", worlds.CASES)
+def test_sharded_family_trains_like_single_device(families_world, case):
+    """Two ZeRO-1 steps through ``shard_train_step``: each loss within 1e-5
+    of the one-device step's (relative to the largest), on every rank."""
+    for res in _family(families_world, case):
+        got, want = res["train"]["losses"], res["train"]["ref_losses"]
+        scale = max(abs(x) for x in want)
+        assert all(abs(a - b) <= 1e-5 * scale for a, b in zip(got, want, strict=True)), \
+            (got, want)
+
+
+@pytest.mark.parametrize("case", worlds.CASES)
+def test_sharded_family_prefill_and_decode_match_single_device(families_world, case):
+    """``shard_prefill`` on a laid-out cache, then 3 greedy tokens through
+    ``shard_decode_step``: the tokens equal the one-device run's and the
+    logits within 1e-5 of max; gemma3's 40-token prompt wraps its 32-slot
+    ring (written only by the rank holding each slot)."""
+    from repro_torch.configs import get_smoke
+    if case == "gemma3-12b":
+        assert get_smoke(case).sliding_window < worlds.FAM_S
+    for res in _family(families_world, case):
+        serve = res["serve"]
+        assert all(serve["tokens_equal"]) and len(serve["tokens_equal"]) == worlds.FAM_GEN + 1
+        assert max(serve["errs"]) < 1e-5, serve["errs"]
+        assert serve["sharded_cache_leaves"] > 0          # the cache is laid out

@@ -285,7 +285,102 @@ def _refusals(mesh) -> dict:
     return out
 
 
-WORLDS = {"train": (8, _train_world), "serve": (8, _serve_world), "moe": (4, _moe_world)}
+# -- world "families": (data 2, model 2), the five families past dense and MoE --
+FAMILIES = ("zamba2-7b", "xlstm-1.3b", "whisper-tiny", "gemma3-12b", "internvl2-2b")
+# head counts that "model" (2) does not divide: the flat projections' shards
+# would split heads, so they are made whole first (attention.split_heads, _flat)
+UNEVEN = {"phi4-mini-3.8b": {"n_heads": 3, "n_kv_heads": 1}, "xlstm-1.3b": {"n_heads": 1, "n_kv_heads": 1},
+          "whisper-tiny": {"n_heads": 3, "n_kv_heads": 3}}
+CASES = FAMILIES + tuple(f"{arch} uneven" for arch in UNEVEN)
+FAM_B, FAM_S, FAM_GEN = 4, 40, 3     # gemma3's 40-token prompt wraps its 32-slot ring
+
+
+def _inputs(cfg, B: int) -> dict:
+    """The VLM's patch prefix and Whisper's frames, seeded: the same on
+    every rank."""
+    g = torch.Generator().manual_seed(SEED_BATCH + 1)
+    if cfg.family == "vlm":
+        return {"patch_embeds": torch.randn((B, cfg.n_patches, cfg.d_model), generator=g)}
+    if cfg.family == "audio":
+        return {"frames": torch.randn((B, cfg.encoder_seq, cfg.d_model), generator=g)}
+    return {}
+
+
+def _family(case: str, mesh) -> dict:
+    import dataclasses
+
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime import parallel as par
+
+    arch, _, uneven = case.partition(" ")
+    cfg = get_smoke(arch)
+    if uneven:
+        cfg = dataclasses.replace(cfg, **UNEVEN[arch])
+    model = build_model(cfg)
+    out = {}
+    batch = {**_batch(cfg, FAM_B, FAM_S), **_inputs(cfg, FAM_B)}
+    rt = par.RuntimeConfig(remat=None, zero1=True, schedule="constant",
+                           opt=AdamWConfig(lr=1e-3))
+    ref = par.make_train_state(model, torch.Generator().manual_seed(SEED_PARAMS), rt)
+    state = par.make_train_state(model, torch.Generator().manual_seed(SEED_PARAMS), rt)
+    step, st_sh, _ = par.shard_train_step(model, mesh, rt, state, batch)
+    state = par.distribute_tree(mesh, state, st_sh)
+    ref_step = par.make_train_step(model, rt)
+    losses, ref_losses = [], []
+    for _ in range(2):
+        ref, m_ref = ref_step(ref, batch)
+        state, m = step(state, batch)
+        losses.append(float(_full(m["loss"])))
+        ref_losses.append(float(m_ref["loss"]))
+    out["train"] = {"losses": losses, "ref_losses": ref_losses}
+
+    prompt = {**_batch(cfg, FAM_B, FAM_S, labels=False), **_inputs(cfg, FAM_B)}
+    S_max = FAM_S + FAM_GEN + 1 + (cfg.n_patches if cfg.family == "vlm" else 0)
+    params = model.init(torch.Generator().manual_seed(SEED_PARAMS))
+    srt = par.RuntimeConfig()
+    cache_like = model.init_cache(FAM_B, S_max, "cpu")
+    pre, p_sh, _, c_sh = par.shard_prefill(model, mesh, srt, S_max, params, prompt, cache_like)
+    dec, _, _, _ = par.shard_decode_step(model, mesh, srt, params, cache_like,
+                                         {"token": prompt["tokens"][:, 0]})
+    dparams = par.distribute_tree(mesh, params, p_sh)
+    ref_logits, ref_cache = model.prefill(params, prompt, S_max)
+    logits, cache = pre(dparams, prompt)
+    errs, tokens_equal = [_rel(logits, ref_logits)], []
+    for _ in range(FAM_GEN):
+        tok = ref_logits.argmax(-1)
+        tokens_equal.append(bool((_full(logits).argmax(-1) == tok).all()))
+        ref_logits, ref_cache = model.decode_step(params, ref_cache, {"token": tok})
+        logits, cache = dec(dparams, cache, {"token": tok})
+        errs.append(_rel(logits, ref_logits))
+    tokens_equal.append(bool((_full(logits).argmax(-1) == ref_logits.argmax(-1)).all()))
+    from torch.distributed.tensor import Shard
+    from torch.utils._pytree import tree_leaves
+    out["serve"] = {"errs": errs, "tokens_equal": tokens_equal,
+                    "sharded_cache_leaves": sum(any(isinstance(p, Shard) for p in t.placements)
+                                                for t in tree_leaves(cache)
+                                                if hasattr(t, "placements"))}
+    return out
+
+
+def _families_world(rank: int) -> dict:
+    from repro_torch.launch.mesh import make_smoke_mesh
+
+    mesh = make_smoke_mesh(2, 2, "cpu")
+    out = {}
+    for case in CASES:
+        t0 = time.perf_counter()
+        try:
+            out[case] = _family(case, mesh)
+        except Exception:
+            out[case] = {"error": traceback.format_exc()}
+        out[case]["seconds"] = time.perf_counter() - t0
+    return out
+
+
+WORLDS = {"train": (8, _train_world), "serve": (8, _serve_world), "moe": (4, _moe_world),
+          "families": (4, _families_world)}
 
 
 def _worker(world: str, rank: int, n: int, store: str, out_dir: str) -> None:

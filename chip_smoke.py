@@ -96,9 +96,19 @@ Phases, each printing one JSON line to stdout:
              AdamW, ZeRO-1, remat "full") trained 3 steps, each beside the
              same run through the one-device steps: tokens equal, losses
              within 1e-3, the kernels' launches equal; the times side by side
-  kernels    per kernel: launches in every staged, full, training and mesh
-             run, error, times, bound; each run's launch counts must equal
-             what its path implies (MoE launches the same kernels as dense)
+  elastic    ``repro_torch.launch.elastic.elastic_restart`` on whisper-tiny at
+             its published widths and depth (4 + 4 layers, 1500 zero frames),
+             B 4, S 448, bf16 params, fp32 AdamW, remat "full": a mirrored
+             two-node session, 6 steps with heartbeats (node 3 a straggler),
+             checkpoints at 3 and 6 (~0.86 GB each), a storage node killed,
+             the restart planned, step 6 restored through the degraded mirror;
+             every restored leaf equal to the live one bit for bit on the card,
+             step 7 from the restored state within 1e-6 of step 7 from a clone
+             of the live state, the plan (15, 16) / ("data", "model") / step
+             6, the launches of 8 steps
+  kernels    per kernel: launches in every staged, full, training, mesh and
+             elastic run, error, times, bound; each run's launch counts must
+             equal what its path implies (MoE launches the same kernels as dense)
 
 Then the card's name and power limit, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before that.
@@ -1380,6 +1390,50 @@ def _mesh_train(torch, mesh) -> dict:
     return got
 
 
+# -- the elastic phase -----------------------------------------------------------
+ELASTIC_STEPS, ELASTIC_EVERY = 6, 3
+
+
+def run_elastic_phase(torch) -> dict:
+    """The elastic restart (module docstring) on whisper-tiny at full width
+    and depth; raises if any of its checks fails."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.elastic import elastic_restart
+    cfg = get_config(WH)
+    seq = TRAIN_SEQ[WH]
+    ops.reset_launches()
+    res = elastic_restart(cfg, device="cuda", steps=ELASTIC_STEPS, ckpt_every=ELASTIC_EVERY,
+                          batch=TRAIN_B, seq=seq, remat="full", seed=0, log=log)
+    got = dict(ops.LAUNCHES)
+    emit({"phase": "elastic", "cfg": f"{WH} {cfg.encoder_layers} + {cfg.n_layers} layers bf16, "
+          "fp32 AdamW", "B": TRAIN_B, "S": seq, "frames": cfg.encoder_seq,
+          "remat": "full", **{k: res[k] for k in (
+              "losses", "resumed_loss", "live_loss", "step_ms", "ckpt_bytes", "save_s",
+              "restore_s", "modeled_write_s", "modeled_stage_out_s", "stragglers", "victim",
+              "degraded", "plan", "committed", "restored_step", "restored_mismatches")},
+          "launches": got})
+    resumed, live = res["resumed_loss"], res["live_loss"]
+    checks = {
+        "restored leaves bit-equal on the card": res["restored_mismatches"] == 0,
+        "degraded read": res["degraded"] is True,
+        "plan": (res["plan"] == {"mesh_shape": (15, 16), "mesh_axes": ("data", "model"),
+                                 "restore_step": ELASTIC_STEPS}
+                 and res["restored_step"] == ELASTIC_STEPS),
+        "stragglers": res["stragglers"] == ["nid00003"],
+        "step 7 restored vs live": (math.isfinite(resumed) and math.isfinite(live)
+                                    and abs(resumed - live) <= 1e-6 * abs(live)),
+        "finite losses": all(math.isfinite(x) for x in res["losses"]),
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"elastic {WH}: {failed}")
+    # 6 steps, then step 7 twice (restored, live clone); no evaluations
+    check_launches(got, expected_train_launches(cfg, ELASTIC_STEPS + 2, 0, True),
+                   f"elastic {WH}")
+    return got
+
+
 # -- the cost phase --------------------------------------------------------------
 COST_ARCHS = (PHI, GEM)
 COST_PEAK_TOL = 0.2
@@ -1594,6 +1648,9 @@ def run_phases(torch, build, child) -> int:
     torch.cuda.empty_cache()
     launches.update(run_mesh_phase(torch))
     log(f"chip_smoke: mesh phase done at {time.perf_counter() - t_start:.1f} s")
+    torch.cuda.empty_cache()
+    launches[f"elastic {WH}"] = run_elastic_phase(torch)
+    log(f"chip_smoke: elastic phase done at {time.perf_counter() - t_start:.1f} s")
 
     emit(kernels_line(main_rows, launches))
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s after the card check")

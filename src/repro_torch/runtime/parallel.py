@@ -207,20 +207,51 @@ def shard_prefill(model: Model, mesh, rt: RuntimeConfig, S_max: int, params_like
                   batch_like, cache_like):
     """``repro``'s ``jit_prefill``: returns (prefill, param_shardings,
     batch_shardings, cache_shardings). ``prefill(params, batch) -> (logits,
-    cache)`` fills a zero cache laid out by the cache rule (KV sequence over
-    "model")."""
+    cache)`` fills an empty cache laid out by the cache rule (KV sequence
+    over "model") in ``cache_like``'s shapes, of which each rank makes only
+    its own shards (``shard_cache``), as ``repro``'s makes it inside
+    ``jax.jit``. ``cache_like`` may be ``model.init_cache`` on the meta
+    device."""
     p_sh = sh.param_shardings(mesh, params_like)
     b_sh = sh.batch_shardings(mesh, batch_like)
     c_sh = sh.cache_shardings(mesh, cache_like)
+    fill = cache_fill(model)
 
     def prefill(params, batch):
         batch = distribute_tree(mesh, batch, b_sh)
-        B = batch["tokens"].shape[0]
-        dev = leaves(params)[0].device
-        cache = distribute_tree(mesh, model.init_cache(B, S_max, dev), c_sh)
-        return model.prefill(params, batch, S_max, cache=cache)
+        return model.prefill(params, batch, S_max, cache=shard_cache(mesh, cache_like, fill))
 
     return _on_mesh(mesh, rt, prefill), p_sh, b_sh, c_sh
+
+
+def cache_fill(model: Model) -> dict:
+    """The value of each leaf of ``model.init_cache`` (by path), read from a
+    one-row, one-position cache made on the CPU (outside any fake mode):
+    every leaf holds one value, 0 for most, -1 for gemma3's ``ring_pos``,
+    log 0 for the xLSTM's stabiliser states ``m``."""
+    from torch._subclasses.fake_tensor import unset_fake_temporarily
+
+    fill = {}
+
+    def one(path, t):
+        fill[path] = t.reshape(-1)[0].item()
+    with unset_fake_temporarily():
+        sh.map_with_path(one, model.init_cache(1, 1, "cpu"))
+    return fill
+
+
+def shard_cache(mesh, cache_like, fill: dict):
+    """``cache_like``'s shapes and dtypes filled with ``fill``'s values
+    (``cache_fill``), laid out by the cache rule, each rank making only its
+    local shard of each leaf (``torch.distributed.tensor.full`` on the
+    mesh's device)."""
+    from torch.distributed.tensor import full
+
+    def leaf(path, t):
+        spec = sh.cache_spec(mesh, path, tuple(t.shape))
+        return full(tuple(t.shape), fill[path], dtype=t.dtype,
+                    device_mesh=mesh, placements=sh.placements(mesh, spec))
+    return sh.map_with_path(leaf, cache_like)
 
 
 def shard_decode_step(model: Model, mesh, rt: RuntimeConfig, params_like, cache_like,

@@ -21,7 +21,9 @@ one zamba2 group training on the card against the CPU; Whisper's attention
 cases (non-causal, S queries against T keys, T 1500) in the flash forward,
 lse and backward and the decode kernel, and the smoke xLSTM and Whisper
 serving and training on the card against the CPU; the decode kernel's lse
-output at the qwen3-14b and gemma3 global decode shapes and kv_len 0. Every test here
+output at the qwen3-14b and gemma3 global decode shapes and kv_len 0; the
+elastic restart (mirrored checkpoints, a storage node lost, the restore bit
+for bit) on the smoke phi4-mini and whisper. Every test here
 carries the ``cuda`` marker and skips without a card. The file imports no JAX,
 so it runs where only PyTorch is installed:
 
@@ -807,3 +809,17 @@ def test_decode_kernel_lse_on_card(cuda_card, shape, kv_len, dtype):
         torch.testing.assert_close(lse, want_lse, atol=tol, rtol=tol)
     # the output alone is unchanged by asking for the lse
     torch.testing.assert_close(decode_attention_cuda(q, k, v, kv_len=kl), out, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("arch", ["phi4-mini-3.8b", "whisper-tiny"])
+def test_elastic_restart_on_card(cuda_card, arch):
+    """``launch.elastic.elastic_restart`` on the smoke config at head dim 64:
+    every restored leaf equals the live one bit for bit, on the card; step 7
+    from the restored state and from a clone of the live state give one
+    loss; the mirror kept serving after the node loss."""
+    from repro_torch.launch.elastic import elastic_restart
+    ops.reset_launches()
+    res = elastic_restart(_smoke64(arch), device="cuda", log=lambda s: None)
+    assert res["restored_mismatches"] == 0 and res["degraded"]
+    assert res["live_loss"] == res["resumed_loss"] and np.isfinite(res["losses"]).all()
+    assert ops.LAUNCHES["flash_attention_bwd"] > 0 and ops.LAUNCHES["rmsnorm_bwd"] > 0

@@ -45,6 +45,48 @@ CELLS = textwrap.dedent("""
 """)
 
 
+# a prefill cell run twice: with ``shard_cache`` as it is, then with the build
+# it replaced (the whole cache on every rank, then laid out); and what the
+# sharded leaves' other ranks' parts weigh
+PREFILL_CACHE = textwrap.dedent("""
+    import dataclasses, json, math, sys
+    from torch.distributed.tensor import Shard
+    from repro_torch.configs import ShapeSpec, get_smoke
+    from repro_torch.launch.dryrun import run_cell
+    from repro_torch.launch.mesh import init_fake_world, make_smoke_mesh
+    from repro_torch.models import build_model
+    from repro_torch.runtime import parallel as par
+    from repro_torch.runtime.sharding import cache_shardings, map_with_path
+    archs, layers, B, S, out = json.loads(sys.argv[1])
+    init_fake_world(4)
+    mesh = make_smoke_mesh(2, 2, "cpu")
+    shape = ShapeSpec(f"prefill_{S}", S, B, "prefill")
+    local = par.shard_cache
+
+    def global_cache(mesh, cache_like, fill):
+        cache = build_model(cfg).init_cache(B, S, "cpu")
+        return par.distribute_tree(mesh, cache, cache_shardings(mesh, cache))
+
+    res = {}
+    for arch in archs:
+        cfg = dataclasses.replace(get_smoke(arch), n_layers=layers)
+        par.shard_cache = local
+        new = run_cell(cfg, shape, out_dir=f"{out}/new", mesh=mesh)
+        par.shard_cache = global_cache
+        old = run_cell(cfg, shape, out_dir=f"{out}/old", mesh=mesh)
+        others = []
+        def one(path, t):
+            n = math.prod(mesh.size(d) for d, p in enumerate(t.placements)
+                          if isinstance(p, Shard))
+            others.append(t.numel() * t.element_size() * (1 - 1 / n))
+        model = build_model(cfg)
+        map_with_path(one, local(mesh, model.init_cache(B, S, "meta"), par.cache_fill(model)))
+        res[arch] = {"new": new["memory"], "old": old["memory"], "others": sum(others)}
+    print(json.dumps(res))
+""")
+PREFILL_CACHE_ARCHS = ("qwen3-14b", "gemma3-12b")
+
+
 def _start(args: list, tmp) -> subprocess.Popen:
     return subprocess.Popen([sys.executable, *args], stdout=subprocess.PIPE,
                             stderr=subprocess.PIPE, text=True, cwd=tmp,
@@ -64,6 +106,8 @@ def runs(tmp_path_factory):
                                  for a in archs for k in KINDS])
     procs = {name: _start(_cells(mesh, tmp / name, cells), tmp)
              for name, (mesh, cells) in groups.items()}
+    procs["prefill_cache"] = _start(
+        ["-c", PREFILL_CACHE, json.dumps([PREFILL_CACHE_ARCHS, 12, 4, 16, str(tmp / "pc")])], tmp)
     procs["cli"] = _start(["-m", "repro_torch.launch.dryrun", "--arch", "whisper-tiny",
                            "--shape", "decode_32k", "--out", str(tmp / "cli")], tmp)
     out = {}
@@ -130,6 +174,21 @@ def test_family_cells_write_records(runs, arch):
         assert set(rec["terms"]) >= {"compute_s", "memory_s", "collective_s"}
         if kind != "decode":
             assert rec["collectives"]["count"] > 0, rec["collectives"]
+
+
+@pytest.mark.parametrize("arch", PREFILL_CACHE_ARCHS)
+def test_prefill_temp_bytes_hold_only_local_cache_shards(runs, arch):
+    """A prefill cell (12 layers, so that the cache outweighs a layer's
+    transients; B 4, S 16) on the fake (2, 2) world: ``shard_cache``
+    takes at least the sharded leaves' other ranks' parts (global bytes x
+    (1 - 1/shards)) off the temp bytes of the build it replaced, which made
+    the whole cache on every rank. A fact about this code, not a gate."""
+    run = runs["prefill_cache"]
+    assert run["rc"] == 0, run["stderr"]
+    res = json.loads(run["stdout"].strip().splitlines()[-1])[arch]
+    assert res["others"] > 0
+    assert res["new"]["argument_bytes"] == res["old"]["argument_bytes"]
+    assert res["old"]["temp_bytes"] - res["new"]["temp_bytes"] >= res["others"], res
 
 
 def test_cli_writes_json(runs):

@@ -5,6 +5,7 @@ examples/serve_decode.py:58-59) on the dense and the MoE arch, on gemma3
 prefix), on xlstm (the recurrent state) and on whisper (zero frames), and the
 train example on the train driver's default MoE arch, on gemma3 (48 tokens
 across its 32-slot window), on zamba2 (the hybrid), on xlstm and on
+whisper, and the elastic-restart example on its default phi4-mini and on
 whisper."""
 
 import os
@@ -35,6 +36,8 @@ ROOT = Path(__file__).resolve().parents[1]
                            "--ckpt-every", "3"]),
     ("torch_train_lm.py", ["--arch", "whisper-tiny", "--steps", "6", "--batch", "2", "--seq",
                            "48", "--ckpt-every", "3"]),
+    ("torch_elastic_restart.py", []),
+    ("torch_elastic_restart.py", ["--arch", "whisper-tiny"]),
 ])
 def test_example_runs_on_cpu(script, args):
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))

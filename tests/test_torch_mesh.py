@@ -230,3 +230,48 @@ def test_sharded_family_prefill_and_decode_match_single_device(families_world, c
         assert all(serve["tokens_equal"]) and len(serve["tokens_equal"]) == worlds.FAM_GEN + 1
         assert max(serve["errs"]) < 1e-5, serve["errs"]
         assert serve["sharded_cache_leaves"] > 0          # the cache is laid out
+
+
+# -- shard_prefill's cache: each rank makes only its own shards ------------------
+def _local_shards_only(storage):
+    """Every sharded leaf's local storage is the global bytes over its shard
+    count: after the prefill no rank keeps a global leaf's storage. The
+    build this replaced passes too (``distribute_tensor`` copies each shard
+    on a gloo world); ``tests/test_torch_dryrun.py`` shows that no rank
+    makes the global cache on the way."""
+    assert storage, "no cache leaf is sharded"
+    for path, local, whole, n in storage:
+        assert local * n == whole, (path, local, whole, n)
+
+
+def test_sharded_prefill_cache_is_made_shard_by_shard(serve_world):
+    for r in serve_world:
+        _local_shards_only(r["decode"]["cache_storage"])
+
+
+@pytest.mark.parametrize("case", worlds.CASES)
+def test_sharded_family_prefill_cache_is_made_shard_by_shard(families_world, case):
+    """Every family on (2, 2): the sharded leaves after the prefill hold
+    local storage only, and ``shard_cache`` gathers to ``init_cache``'s
+    values (gemma3's ``ring_pos`` of -1, the xLSTM's ``m`` of log 0)."""
+    for res in _family(families_world, case):
+        _local_shards_only(res["serve"]["cache_storage"])
+        assert res["serve"]["built_as_init_cache"]
+
+
+@pytest.mark.parametrize("arch", worlds.FAMILIES + ("qwen3-14b", "qwen3-moe-30b-a3b"))
+def test_cache_fill_holds_every_leaf_of_init_cache(arch):
+    """``cache_fill``, which ``shard_cache`` fills by, reads each leaf's value
+    from a one-row, one-position cache; every leaf of a larger
+    ``init_cache`` holds that one value throughout."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import build_model
+    from repro_torch.runtime.parallel import cache_fill
+    from repro_torch.runtime.sharding import map_with_path
+
+    model = build_model(get_smoke(arch))
+    fill = cache_fill(model)
+
+    def one(path, t):
+        assert bool((t == fill[path]).all()), (path, fill[path])
+    map_with_path(one, model.init_cache(2, 8, "cpu"))

@@ -12,6 +12,7 @@ itself on the same full tensors.
 from __future__ import annotations
 
 import datetime
+import math
 import os
 import time
 import traceback
@@ -143,6 +144,7 @@ def _serve_world(rank: int) -> dict:
                                          {"token": batch["tokens"][:, 0]})
     dparams = par.distribute_tree(mesh, params, p_sh)
     logits, cache = pre(dparams, batch)
+    storage = cache_storage(cache)
     errs, tokens_equal, pos = [_rel(logits, ref_logits)], [], [int(_full(cache["pos"]))]
     for _ in range(steps):
         tok = ref_logits.argmax(-1)
@@ -153,7 +155,7 @@ def _serve_world(rank: int) -> dict:
         pos.append(int(_full(cache["pos"])))
     k_cache_err = _rel(cache["k"], ref_cache["k"])
     return {"decode": {"errs": errs, "tokens_equal": tokens_equal, "pos": pos,
-                       "cache_err": k_cache_err,
+                       "cache_err": k_cache_err, "cache_storage": storage,
                        "k_placements": [repr(p) for p in cache["k"].placements],
                        "ref_pos": int(ref_cache["pos"])}}
 
@@ -347,6 +349,7 @@ def _family(case: str, mesh) -> dict:
     dparams = par.distribute_tree(mesh, params, p_sh)
     ref_logits, ref_cache = model.prefill(params, prompt, S_max)
     logits, cache = pre(dparams, prompt)
+    storage = cache_storage(cache)
     errs, tokens_equal = [_rel(logits, ref_logits)], []
     for _ in range(FAM_GEN):
         tok = ref_logits.argmax(-1)
@@ -357,10 +360,34 @@ def _family(case: str, mesh) -> dict:
     tokens_equal.append(bool((_full(logits).argmax(-1) == ref_logits.argmax(-1)).all()))
     from torch.distributed.tensor import Shard
     from torch.utils._pytree import tree_leaves
+    built = par.shard_cache(mesh, cache_like, par.cache_fill(model))
     out["serve"] = {"errs": errs, "tokens_equal": tokens_equal,
                     "sharded_cache_leaves": sum(any(isinstance(p, Shard) for p in t.placements)
                                                 for t in tree_leaves(cache)
-                                                if hasattr(t, "placements"))}
+                                                if hasattr(t, "placements")),
+                    "cache_storage": storage,
+                    "built_as_init_cache": all(
+                        torch.equal(_full(a), b) for a, b in
+                        zip(tree_leaves(built), tree_leaves(model.init_cache(FAM_B, S_max, "cpu")),
+                            strict=True))}
+    return out
+
+
+def cache_storage(cache) -> list:
+    """(path, bytes of the local shard's storage, global bytes, number of
+    shards) of each cache leaf that some mesh dim shards."""
+    from torch.distributed.tensor import Shard
+
+    from repro_torch.runtime.sharding import map_with_path
+    out = []
+
+    def one(path, t):
+        n = math.prod(t.device_mesh.size(d) for d, p in enumerate(t.placements)
+                      if isinstance(p, Shard))
+        if n > 1:
+            out.append((path, t.to_local().untyped_storage().nbytes(),
+                        t.numel() * t.element_size(), n))
+    map_with_path(one, cache)
     return out
 
 

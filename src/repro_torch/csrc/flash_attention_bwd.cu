@@ -54,15 +54,16 @@
 //   transpose bit (hd 112 runs them at N = 128 on zero-filled columns);
 //   dS^T goes once to shared memory, and dQ = dS K runs from it and K, both
 //   MN-major, each warpgroup taking half of the head dim over all 128 keys.
-//   dQ (times hd^-0.5) goes to shared memory in float32 and one thread adds
-//   it into dq_acc with bulk tensor reductions (cp.reduce.async.bulk.tensor
+//   dQ (times hd^-0.5) goes to shared memory in float32 and a writer thread
+//   in the producer warpgroup (one for each consumer warpgroup) adds it into
+//   dq_acc with bulk tensor reductions (cp.reduce.async.bulk.tensor
 //   .add: the copy engine does the additions and drops rows past S and
 //   columns past hd), two boxes of 64 x 32 a warpgroup and q tile, in place
-//   of 8,192 scalar atomics a 64 x 64 tile pair. Their order still varies
-//   from run to run. The grid launches the heaviest causal kv tiles (lowest
-//   keys) first. Shared memory: 194 KB at hd 112/128 (one CTA an SM), 81 KB
-//   at hd 64. nvcc -Xptxas -v: 168 registers at launch and no spill at hd
-//   112 and 128, 203 and no spill at hd 64.
+//   of 8,192 scalar atomics a 64 x 64 tile pair. The grid launches the
+//   heaviest causal kv tiles (lowest keys) first. Shared memory: 194 KB at
+//   hd 112/128 (one CTA an SM), 81 KB at hd 64. nvcc -Xptxas -v: 168
+//   registers at launch and no spill at hd 112 and 128, 205 and no spill at
+//   hd 64.
 //   hd 256 (gemma3): dK and dV of 64 keys over all 256 columns would be 256
 //   accumulator registers a thread, past the consumers' 240, and the tiles
 //   above would take over 256 KB. So the kv tile is 64 keys, both consumer
@@ -81,6 +82,24 @@
 //   dq by float32 atomicAdd; kv tiles of BKV = 64 keys. ~166 KB of shared
 //   memory at hd 128: one block an SM. At hd 256 the q tile is 32 rows
 //   (each thread 2 x 4 of S and dP), 214 KB.
+//
+// dq's order of additions is fixed, in both kernels, so that a step's
+// gradients are the same bits in every run (AdamW's first steps, about
+// lr * sign(g), turn a last-bit difference of a near-zero gradient into a
+// whole step, and a training run's losses parted by 3% after 7 steps): each
+// (b, h, q tile) has a counter in `sem`, and the blocks of the kv tiles
+// that reach the q tile add their dQ tile into dq_acc in the order of their
+// kv tiles, each waiting (one thread, an acquire load) until the counter
+// shows the earlier tiles' additions done, and releasing it once its own
+// has completed. In the bf16 kernel the waits fall on a writer thread while
+// the block computes on, and the lower kv tiles, the heavier under a causal
+// mask, are launched first and add first; in the float32 kernel the whole
+// block waits, and the higher ones, the lighter, are launched first and add
+// first, so that a block seldom waits for one that reaches the tile later
+// (1.13x the unordered time at phi4-mini's shape, against 1.74x in the
+// other order). Either way a block waits only for blocks of its (b, kh)
+// with lower block indices, started before it; a wait that outlasts 10 s
+// traps rather than hang.
 
 #include <cmath>
 #include <type_traits>
@@ -93,6 +112,9 @@ constexpr int BQ = 64;
 constexpr int BKV = 64;
 constexpr int NTHREADS = 256;   // 16 (tx) x 16 (ty)
 constexpr int LP = BKV + 1;     // padded row stride of the P and dS tiles
+// the smallest q tile of either kernel: sem holds a counter for each
+// (b, h, q tile) of any of them
+constexpr int MIN_QT = 32;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -106,15 +128,71 @@ template <typename T> __device__ __forceinline__ float round_to(float x) {
   return to_f(from_f<T>(x));
 }
 
+// The q tiles of QB rows that can reach a key of kv tile kt (BKV keys):
+// [begin, end).
+struct QTiles {
+  int begin, end;
+};
+__device__ inline QTiles q_tiles(int kt, int BKV, int QB, int S, int T_len, int causal,
+                                 int window) {
+  const int k0 = kt * BKV;
+  const int k_last = min(k0 + BKV, T_len) - 1;
+  const int r_lo = causal ? k0 : 0;
+  const int r_hi = window >= 0 ? min(S, k_last + window) : S;     // exclusive
+  const int begin = r_lo / QB;
+  return {begin, r_lo < r_hi ? (r_hi + QB - 1) / QB : begin};
+}
+
+// The additions into q tile qt's rows that come before kv tile kt's: the
+// kv tiles below kt that reach qt, or with `from_top` those above it.
+__device__ inline int dq_turn(int kt, int qt, int BKV, int QB, int S, int T_len, int causal,
+                              int window, bool from_top) {
+  int n = 0;
+  for (int j = from_top ? kt + 1 : 0; from_top ? j * BKV < T_len : j < kt; ++j) {
+    const QTiles r = q_tiles(j, BKV, QB, S, T_len, causal, window);
+    n += r.begin <= qt && qt < r.end;
+  }
+  return n;
+}
+
+__device__ __forceinline__ int ld_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.s32 %0, [%1];\n" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void release_add(int* p, int v) {
+  asm volatile("red.release.gpu.global.add.s32 [%0], %1;\n" :: "l"(p), "r"(v) : "memory");
+}
+
+__device__ __forceinline__ uint64_t global_ns() {
+  uint64_t t;
+  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
+  return t;
+}
+
+// Waits until *sem >= target (see the head of this file); traps after 10 s.
+__device__ __forceinline__ void wait_turn(const int* sem, int target) {
+  if (ld_acquire(sem) >= target) return;
+  const uint64_t t0 = global_ns();
+  while (ld_acquire(sem) < target) {
+    __nanosleep(64);
+    if (global_ns() - t0 > 10000000000ull) __trap();
+  }
+}
+
 // D[b, h, s] = sum_d dO[b, s, h, d] * O[b, s, h, d], and the row of the
-// float32 dq buffer at (b, s, h) zeroed for the main kernel's additions: one
+// float32 dq buffer at (b, s, h) and the first n_sem counters zeroed for the
+// main kernel's additions (the counters need n_sem <= B S H 32): one
 // warp per (b, s, h), the head dim unrolled so each lane's loads are all in
 // flight at once.
 template <typename T, int HD>
 __global__ void bwd_prep_kernel(const T* __restrict__ o, const T* __restrict__ dout,
-                                float* __restrict__ D, float* __restrict__ dq_acc, int B, int S,
-                                int H) {
-  const int64_t row = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) / 32;
+                                float* __restrict__ D, float* __restrict__ dq_acc,
+                                int* __restrict__ sem, int64_t n_sem, int B, int S, int H) {
+  const int64_t gid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (gid < n_sem) sem[gid] = 0;
+  const int64_t row = gid / 32;
   const int lane = threadIdx.x % 32;
   if (row >= (int64_t)B * S * H) return;
   const T* op = o + row * HD;
@@ -146,8 +224,8 @@ __global__ void __launch_bounds__(NTHREADS)
 flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                  const T* __restrict__ dout, const float* __restrict__ lse,
                  const float* __restrict__ D, float* __restrict__ dq_acc,
-                 T* __restrict__ dk, T* __restrict__ dv, int S, int T_len, int H, int K,
-                 int causal, int window, float scale) {
+                 int* __restrict__ sem, T* __restrict__ dk, T* __restrict__ dv, int S,
+                 int T_len, int H, int K, int causal, int window, float scale) {
   constexpr int QB = f32_q_tile(HD);
   constexpr int RQ = QB / 16;       // q rows per thread
   constexpr int LD = HD + 1;        // padded row stride of the q, dO, k and v tiles
@@ -165,7 +243,8 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   const int tid = threadIdx.x;
   const int tx = tid & 15;
   const int ty = tid >> 4;
-  const int k0 = blockIdx.x * BKV;
+  const int kt = gridDim.x - 1 - blockIdx.x;    // the lightest kv tiles first
+  const int k0 = kt * BKV;
   const int b = blockIdx.y / K;
   const int kh = blockIdx.y % K;
   const int G = H / K;
@@ -188,12 +267,8 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 #pragma unroll
     for (int j = 0; j < DPT; ++j) dk_acc[i][j] = dv_acc[i][j] = 0.f;
 
-  // q rows that can reach a key of this tile
-  const int k_last = min(k0 + BKV, T_len) - 1;
-  const int r_lo = causal ? k0 : 0;
-  const int r_hi = window >= 0 ? min(S, k_last + window) : S;     // exclusive
-  const int qt_begin = r_lo / QB;
-  const int qt_end = r_lo < r_hi ? (r_hi + QB - 1) / QB : qt_begin;
+  const QTiles tiles = q_tiles(kt, BKV, QB, S, T_len, causal, window);
+  const int n_qt = (S + QB - 1) / QB;
 
   for (int g = 0; g < G; ++g) {
     const int h = kh * G + g;
@@ -203,7 +278,7 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     const float* lse_b = lse + ((int64_t)b * H + h) * S;
     const float* D_b = D + ((int64_t)b * H + h) * S;
 
-    for (int qt = qt_begin; qt < qt_end; ++qt) {
+    for (int qt = tiles.begin; qt < tiles.end; ++qt) {
       const int q0 = qt * QB;
       __syncthreads();      // the previous tile's qs, dos, ps, dss consumed
       for (int i = tid; i < QB * HD; i += NTHREADS) {
@@ -306,6 +381,11 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 #pragma unroll
           for (int j = 0; j < DPT; ++j) dqa[i][j] = fmaf(dsv[i], kv[j], dqa[i][j]);
       }
+      // in the kv tiles' order, the highest first (the head of this file)
+      int* sem_qt = sem + ((int64_t)b * H + h) * n_qt + qt;
+      if (tid == 0)
+        wait_turn(sem_qt, dq_turn(kt, qt, BKV, QB, S, T_len, causal, window, true));
+      __syncthreads();
 #pragma unroll
       for (int i = 0; i < RQ; ++i) {
         const int row = q0 + ty + 16 * i;
@@ -314,6 +394,9 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
         for (int j = 0; j < DPT; ++j)
           atomicAdd(dqb + (int64_t)row * q_row + tx + 16 * j, dqa[i][j] * scale);
       }
+      __threadfence();
+      __syncthreads();
+      if (tid == 0) release_add(sem_qt, 1);
     }
   }
 
@@ -380,6 +463,12 @@ __device__ __forceinline__ void named_bar(int id, int threads) {
 // Generic-proxy writes to shared memory made visible to wgmma and TMA.
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Orders this thread's global accesses through the async proxy (the bulk
+// reductions) with its generic ones (the dq counters).
+__device__ __forceinline__ void fence_proxy_async_global() {
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
 }
 
 __device__ __forceinline__ void st_shared(uint32_t addr, uint32_t v) {
@@ -471,8 +560,9 @@ flash_bwd_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q,
                        const __grid_constant__ CUtensorMap tm_do,
                        const __grid_constant__ CUtensorMap tm_dq,
                        const float* __restrict__ lse, const float* __restrict__ D,
-                       __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int B,
-                       int S, int T_len, int H, int K, int causal, int window, float scale) {
+                       int* __restrict__ sem, __nv_bfloat16* __restrict__ dk,
+                       __nv_bfloat16* __restrict__ dv, int B, int S, int T_len, int H, int K,
+                       int causal, int window, float scale) {
   constexpr bool SPLIT = split_cols(HD);
   constexpr int BKV = kv_tile(HD);
   constexpr int NST = ring_stages(HD);
@@ -485,7 +575,7 @@ flash_bwd_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q,
   constexpr int DS_BYTES = BKV * 128;               // dS^T: 64 q columns of bf16 a key
   constexpr int DQ_BYTES = (NQ / 32) * BQ * 128;    // a warpgroup's dQ, 32-column boxes
   extern __shared__ uint8_t smem_raw[];
-  __shared__ __align__(8) uint64_t bars[1 + 2 * NST];
+  __shared__ __align__(8) uint64_t bars[1 + 2 * NST + 2 * NWG];
   __shared__ __align__(16) float s_lse[NST][BQ];       // lse in log2 units, +inf past S
   __shared__ __align__(16) float s_d[NST][BQ];         // D, 0 past S
 
@@ -498,6 +588,9 @@ flash_bwd_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q,
   const uint32_t bar_kv = smem_u32(&bars[0]);
   auto full = [&](int s) { return smem_u32(&bars[1 + s]); };
   auto empty = [&](int s) { return smem_u32(&bars[1 + NST + s]); };
+  // a warpgroup's dQ tile written to shared memory, and read by the writer
+  auto dq_full = [&](int w) { return smem_u32(&bars[1 + 2 * NST + w]); };
+  auto dq_empty = [&](int w) { return smem_u32(&bars[1 + 2 * NST + NWG + w]); };
 
   // Grid order: the heaviest causal kv tiles (lowest keys) first.
   const int kt = blockIdx.x / (B * K);
@@ -507,11 +600,9 @@ flash_bwd_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q,
   const int k0 = kt * BKV;
 
   // q tiles that can reach a key of this tile, for each of the G heads
-  const int k_last = min(k0 + BKV, T_len) - 1;
-  const int r_lo = causal ? k0 : 0;
-  const int r_hi = window >= 0 ? min(S, k_last + window) : S;     // exclusive
-  const int qt_begin = r_lo / BQ;
-  const int nqt = r_lo < r_hi ? (r_hi + BQ - 1) / BQ - qt_begin : 0;
+  const QTiles tiles = q_tiles(kt, BKV, BQ, S, T_len, causal, window);
+  const int qt_begin = tiles.begin;
+  const int nqt = tiles.end - tiles.begin;
   const int iters = G * nqt;
 
   const int warp = threadIdx.x / 32;
@@ -522,13 +613,18 @@ flash_bwd_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q,
       mbar_init(full(s), 32);                   // every producer lane
       mbar_init(empty(s), 4 * NWG);             // one arrival per consumer warp
     }
+    for (int w = 0; w < NWG; ++w) {
+      mbar_init(dq_full(w), 1);
+      mbar_init(dq_empty(w), 1);
+    }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
   if (warp >= 4 * NWG) {
     // producer warpgroup: its first warp loads K and V once, then Q, dO,
-    // lse and D of each (head, q tile) into the ring
+    // lse and D of each (head, q tile) into the ring; lane 0 of each of the
+    // next NWG warps adds one consumer warpgroup's dQ tiles into dq_acc
     if constexpr (NWG > 1) asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
     if (warp == 4 * NWG) {
       if (lane == 0) {
@@ -562,6 +658,33 @@ flash_bwd_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q,
           s_d[s][r] = row < S ? D_b[row] : 0.f;
         }
         mbar_arrive(full(s));
+        if (++qt == qt_begin + nqt) {
+          qt = qt_begin;
+          ++h;
+        }
+      }
+    } else if (warp <= 4 * NWG + NWG && lane == 0) {
+      // the dQ writer of warpgroup w: each tile, once every lower kv tile's
+      // block has added into its rows (the head of this file), one bulk
+      // reduction a 32-column box; the buffer handed back once read, the
+      // counter released once the additions have completed
+      const int w = warp - 4 * NWG - 1;
+      const uint32_t buf = sdq0 + w * DQ_BYTES;
+      const int n_qt = (S + BQ - 1) / BQ;
+      for (int i = 0, h = kh * G, qt = qt_begin; i < iters; ++i) {
+        mbar_wait(dq_full(w), i & 1);
+        int* counter = sem + ((int64_t)b * H + h) * n_qt + qt;
+        wait_turn(counter, NWG * dq_turn(kt, qt, BKV, BQ, S, T_len, causal, window, false));
+        fence_proxy_async_global();
+#pragma unroll
+        for (int bx = 0; bx < NQ / 32; ++bx)
+          tma_reduce_add_4d(&tm_dq, buf + bx * BQ * 128, w * NQ + 32 * bx, h, qt * BQ, b);
+        bulk_commit();
+        bulk_wait_read();
+        mbar_arrive(dq_empty(w));
+        bulk_wait();
+        fence_proxy_async_global();
+        release_add(counter, 1);
         if (++qt == qt_begin + nqt) {
           qt = qt_begin;
           ++h;
@@ -715,11 +838,8 @@ flash_bwd_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q,
     }
 
     // dQ = dS K over all BKV keys, once every warpgroup's dS^T is in shared
-    // memory: this warpgroup's NQ columns, dS^T and K both MN-major. The
-    // barrier also tells the warpgroup that the last tile's reductions have
-    // read its dQ buffer.
+    // memory: this warpgroup's NQ columns, dS^T and K both MN-major.
     fence_proxy_async();
-    if (tid == 0) bulk_wait_read();
     named_bar(1, 128 * NWG);
     float dq[NQ / 2];
 #pragma unroll
@@ -744,8 +864,10 @@ flash_bwd_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q,
     }
 
     // dQ * hd^-0.5 into shared memory (32-column boxes of 128-byte rows,
-    // the 16-byte chunk c of q row r at c ^ (r % 8)), then one bulk reduction
-    // a box into dq_acc; rows past S and columns past hd are dropped
+    // the 16-byte chunk c of q row r at c ^ (r % 8)) once the writer has
+    // read the last tile's, then handed to the writer, whose reductions drop
+    // rows past S and columns past hd
+    if (i > 0) mbar_wait(dq_empty(wg), (i - 1) & 1);
 #pragma unroll
     for (int j = 0; j < NQ / 8; ++j) {
       const uint32_t at = sdq + (j / 4) * BQ * 128 + ra * 128 +
@@ -755,18 +877,12 @@ flash_bwd_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q,
     }
     fence_proxy_async();
     named_bar(2 + wg, 128);
-    if (tid == 0) {
-#pragma unroll
-      for (int bx = 0; bx < NQ / 32; ++bx)
-        tma_reduce_add_4d(&tm_dq, sdq + bx * BQ * 128, wg * NQ + 32 * bx, h, q0, b);
-      bulk_commit();
-    }
+    if (tid == 0) mbar_arrive(dq_full(wg));
     if (++qt == qt_begin + nqt) {
       qt = qt_begin;
       ++h;
     }
   }
-  if (tid == 0) bulk_wait();
 
   const int64_t k_row = (int64_t)K * HD;
   __nv_bfloat16* dkb = dk + (int64_t)b * T_len * k_row + (int64_t)kh * HD;
@@ -793,16 +909,16 @@ flash_bwd_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q,
 
 template <int HD>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* dout,
-                   const float* lse, const float* D, float* dq_acc, void* dk, void* dv, int B,
-                   int S, int T_len, int H, int K, int causal, int window, float scale,
-                   cudaStream_t stream) {
+                   const float* lse, const float* D, float* dq_acc, int* sem, void* dk,
+                   void* dv, int B, int S, int T_len, int H, int K, int causal, int window,
+                   float scale, cudaStream_t stream) {
   constexpr int NWG = consumers(HD);
   constexpr int BKV = kv_tile(HD);
   constexpr int NB = (HD + BOX - 1) / BOX;
   constexpr int NQ = NB * BOX / NWG;
   constexpr size_t smem = 1024 + (size_t)NB * 128 * (2 * BKV + 2 * ring_stages(HD) * BQ) +
                           2 * (size_t)BKV * 128 + (size_t)NWG * (NQ / 32) * BQ * 128;
-  static_assert(smem + sizeof(uint64_t) * (1 + 2 * ring_stages(HD)) +
+  static_assert(smem + sizeof(uint64_t) * (1 + 2 * ring_stages(HD) + 2 * NWG) +
                     8 * ring_stages(HD) * BQ <= 232448, "shared memory over 227 KB");
   if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)dout | (uintptr_t)dq_acc) % 16)
     return cudaErrorInvalidValue;
@@ -817,7 +933,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* dout
   if (err != cudaSuccess) return err;
   const int grid = ((T_len + BKV - 1) / BKV) * B * K;
   kern<<<grid, 128 * (NWG + 1), smem, stream>>>(
-      tq, tk, tv, tdo, tdq, lse, D, static_cast<__nv_bfloat16*>(dk),
+      tq, tk, tv, tdo, tdq, lse, D, sem, static_cast<__nv_bfloat16*>(dk),
       static_cast<__nv_bfloat16*>(dv), B, S, T_len, H, K, causal, window, scale);
   return cudaGetLastError();
 }
@@ -833,20 +949,21 @@ __global__ void cast_kernel(const float* __restrict__ src, T* __restrict__ dst, 
 
 template <typename T, int HD>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* o, const void* dout,
-                   const float* lse, float* D, float* dq_acc, void* dq, void* dk, void* dv,
-                   int B, int S, int T_len, int H, int K, int causal, int window,
+                   const float* lse, float* D, float* dq_acc, int* sem, void* dq, void* dk,
+                   void* dv, int B, int S, int T_len, int H, int K, int causal, int window,
                    cudaStream_t stream) {
   const int64_t nq = (int64_t)B * S * H * HD;
   const int64_t rows = (int64_t)B * S * H;
   bwd_prep_kernel<T, HD><<<(unsigned)((rows * 32 + 255) / 256), 256, 0, stream>>>(
-      static_cast<const T*>(o), static_cast<const T*>(dout), D, dq_acc, B, S, H);
+      static_cast<const T*>(o), static_cast<const T*>(dout), D, dq_acc, sem,
+      (int64_t)B * H * ((S + MIN_QT - 1) / MIN_QT), B, S, H);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
   const float scale = (float)(1.0 / sqrt((double)HD));
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    err = hopper::launch<HD>(q, k, v, dout, lse, D, dq_acc, dk, dv, B, S, T_len, H, K, causal,
-                             window, scale, stream);
+    err = hopper::launch<HD>(q, k, v, dout, lse, D, dq_acc, sem, dk, dv, B, S, T_len, H, K,
+                             causal, window, scale, stream);
     if (err != cudaSuccess) return err;
   } else {
     constexpr int QB = f32_q_tile(HD);
@@ -858,8 +975,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o, c
     if (err != cudaSuccess) return err;
     kern<<<grid, NTHREADS, smem, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-        static_cast<const T*>(dout), lse, D, dq_acc, static_cast<T*>(dk), static_cast<T*>(dv),
-        S, T_len, H, K, causal, window, scale);
+        static_cast<const T*>(dout), lse, D, dq_acc, sem, static_cast<T*>(dk),
+        static_cast<T*>(dv), S, T_len, H, K, causal, window, scale);
   }
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
@@ -873,18 +990,18 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o, c
 
 template <typename T>
 cudaError_t dispatch_hd(const void* q, const void* k, const void* v, const void* o,
-                        const void* dout, const float* lse, float* D, float* dq_acc, void* dq,
-                        void* dk, void* dv, int B, int S, int T_len, int H, int K, int hd,
-                        int causal, int window, cudaStream_t st) {
+                        const void* dout, const float* lse, float* D, float* dq_acc, int* sem,
+                        void* dq, void* dk, void* dv, int B, int S, int T_len, int H, int K,
+                        int hd, int causal, int window, cudaStream_t st) {
   switch (hd) {
-    case 64: return launch<T, 64>(q, k, v, o, dout, lse, D, dq_acc, dq, dk, dv, B, S, T_len, H,
-                                  K, causal, window, st);
-    case 112: return launch<T, 112>(q, k, v, o, dout, lse, D, dq_acc, dq, dk, dv, B, S, T_len,
-                                    H, K, causal, window, st);
-    case 128: return launch<T, 128>(q, k, v, o, dout, lse, D, dq_acc, dq, dk, dv, B, S, T_len,
-                                    H, K, causal, window, st);
-    case 256: return launch<T, 256>(q, k, v, o, dout, lse, D, dq_acc, dq, dk, dv, B, S, T_len,
-                                    H, K, causal, window, st);
+    case 64: return launch<T, 64>(q, k, v, o, dout, lse, D, dq_acc, sem, dq, dk, dv, B, S,
+                                  T_len, H, K, causal, window, st);
+    case 112: return launch<T, 112>(q, k, v, o, dout, lse, D, dq_acc, sem, dq, dk, dv, B, S,
+                                    T_len, H, K, causal, window, st);
+    case 128: return launch<T, 128>(q, k, v, o, dout, lse, D, dq_acc, sem, dq, dk, dv, B, S,
+                                    T_len, H, K, causal, window, st);
+    case 256: return launch<T, 256>(q, k, v, o, dout, lse, D, dq_acc, sem, dq, dk, dv, B, S,
+                                    T_len, H, K, causal, window, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -897,25 +1014,27 @@ extern "C" const char* cuda_error_string(int err) {
 
 // dtype: 0 float32, 1 bfloat16. window < 0 means none. q, o, dout: (B,S,H,hd);
 // k, v: (B,T,K,hd); lse: (B,H,S) float32 from the forward; D: (B,H,S) float32
-// scratch; dq_acc: (B,S,H,hd) float32 scratch, zeroed here; dq: (B,S,H,hd) of
-// dtype, or dq_acc itself for float32 (no cast); dk, dv: (B,T,K,hd) of dtype.
-// All contiguous.
+// scratch; dq_acc: (B,S,H,hd) float32 scratch, zeroed here; sem: B H ceil(S/32)
+// int32 scratch (the counters that order dq's additions), zeroed here; dq:
+// (B,S,H,hd) of dtype, or dq_acc itself for float32 (no cast); dk, dv:
+// (B,T,K,hd) of dtype. All contiguous.
 extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, const void* o,
                                    const void* dout, const void* lse, void* D, void* dq_acc,
-                                   void* dq, void* dk, void* dv, int B, int S, int T_len, int H,
-                                   int K, int hd, int causal, int window, int dtype,
-                                   void* stream) {
+                                   void* sem, void* dq, void* dk, void* dv, int B, int S,
+                                   int T_len, int H, int K, int hd, int causal, int window,
+                                   int dtype, void* stream) {
   if (B <= 0 || S <= 0 || T_len <= 0 || K <= 0 || H % K != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   float* d = static_cast<float*>(D);
   float* acc = static_cast<float*>(dq_acc);
+  int* c = static_cast<int*>(sem);
   switch (dtype) {
     case 0:
-      return (int)dispatch_hd<float>(q, k, v, o, dout, l, d, acc, dq, dk, dv, B, S, T_len, H, K,
-                                     hd, causal, window, st);
+      return (int)dispatch_hd<float>(q, k, v, o, dout, l, d, acc, c, dq, dk, dv, B, S, T_len, H,
+                                     K, hd, causal, window, st);
     case 1:
-      return (int)dispatch_hd<__nv_bfloat16>(q, k, v, o, dout, l, d, acc, dq, dk, dv, B, S,
+      return (int)dispatch_hd<__nv_bfloat16>(q, k, v, o, dout, l, d, acc, c, dq, dk, dv, B, S,
                                              T_len, H, K, hd, causal, window, st);
     default: return (int)cudaErrorInvalidValue;
   }

@@ -28,7 +28,7 @@ HEAD_DIMS = (64, 112, 128, 256)
 BWD_HEAD_DIMS = HEAD_DIMS           # the backward kernel's (hd 256: gemma3)
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {"flash_attention_fwd": [_P] * 5 + [_I] * 9 + [_P]}
-_BWD_SIGNATURES = {"flash_attention_bwd": [_P] * 11 + [_I] * 9 + [_P]}
+_BWD_SIGNATURES = {"flash_attention_bwd": [_P] * 12 + [_I] * 9 + [_P]}
 
 
 def _scores(q, k, causal, window):
@@ -131,6 +131,13 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return (out, lse) if return_lse else out
 
 
+def bwd_sem_count(B: int, S: int, H: int) -> int:
+    """The backward's int32 counters that fix the order of dq's additions:
+    one for each (b, h, q tile of 32 rows), the smallest tile of its
+    kernels (``csrc/flash_attention_bwd.cu``)."""
+    return B * H * -(-S // 32)
+
+
 def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              o: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor, *,
                              causal: bool = True, window: Optional[int] = None):
@@ -149,14 +156,16 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     f32 = dict(dtype=torch.float32, device=q.device)
     D = torch.empty((B, H, S), **f32)
     dq_acc = torch.empty(q.shape, **f32)
+    sem = torch.empty(bwd_sem_count(B, S, H), dtype=torch.int32, device=q.device)
     dq = dq_acc if q.dtype == torch.float32 else torch.empty_like(q)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     lib = build.library("flash_attention_bwd", _BWD_SIGNATURES)
     with torch.cuda.device(q.device):
         err = lib.flash_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), dout.data_ptr(),
-            lse.data_ptr(), D.data_ptr(), dq_acc.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), B, S, T, H, K, hd, int(causal), -1 if window is None else int(window),
-            DTYPE_CODES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
+            lse.data_ptr(), D.data_ptr(), dq_acc.data_ptr(), sem.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), B, S, T, H, K, hd, int(causal),
+            -1 if window is None else int(window), DTYPE_CODES[q.dtype],
+            torch.cuda.current_stream(q.device).cuda_stream)
     build.check(lib, err, "flash_attention_bwd")
     return dq, dk, dv

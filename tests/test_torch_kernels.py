@@ -528,3 +528,22 @@ def test_decode_attention_lse_merge_of_two_shards(kv_len):
     w = torch.exp(lse - m)
     merged = sum(p[0] * w[i][:, None, :, None] for i, p in enumerate(parts)) / w.sum(0)[:, None, :, None]
     torch.testing.assert_close(merged, whole, atol=1e-6, rtol=1e-6)
+
+
+def test_bwd_sem_count_covers_every_q_tile():
+    """The flash backward's dq counters: the wrapper allocates one for each
+    (b, h, q tile) of the smallest q tile that the C source zeroes and
+    indexes (``MIN_QT``), so every q tile of 32 or 64 rows has its own."""
+    import re
+    from pathlib import Path
+
+    from repro_torch.kernels.flash_attention import bwd_sem_count
+    text = (Path(__file__).resolve().parents[1] / "src/repro_torch/csrc"
+            / "flash_attention_bwd.cu").read_text()
+    assert int(re.search(r"constexpr int MIN_QT = (\d+);", text).group(1)) == 32
+    for B, S, H in [(1, 1, 1), (2, 31, 3), (4, 2048, 24), (4, 1500, 6), (3, 65, 5)]:
+        n = bwd_sem_count(B, S, H)
+        assert n == B * H * -(-S // 32)
+        for qb in (32, 64):
+            last = ((B - 1) * H + H - 1) * -(-S // qb) + -(-S // qb) - 1
+            assert last < n

@@ -1,12 +1,14 @@
 """The port's copies of ``repro``'s pure-Python layers: each copied module
-byte for byte, and the provisioning layer (``provision/``, ``pool/``)
-behaving as ``repro``'s on the same calls: sessions of every lifetime
-class and backend, a negotiation that fails with every backend's reason,
-a pool lease's hits, misses and LRU eviction, a mirrored session that
-loses a storage node and still reads, and the modeled deploy and staging
-seconds, equal exactly. Each scenario runs once on each package and
-returns plain data."""
+byte for byte (``obs/__init__.py`` by its code and names, its docstring the
+port's), every module of the campaign layers copied, and the provisioning
+layer (``provision/``, ``pool/``) behaving as ``repro``'s on the same
+calls: sessions of every lifetime class and backend, a negotiation that
+fails with every backend's reason, a pool lease's hits, misses and LRU
+eviction, a mirrored session that loses a storage node and still reads,
+and the modeled deploy and staging seconds, equal exactly. Each scenario
+runs once on each package and returns plain data."""
 
+import ast
 import importlib
 from pathlib import Path
 
@@ -18,14 +20,16 @@ ROOT = Path(__file__).resolve().parents[1]
 GB, TB = 1e9, 1e12
 
 # copies of repro's modules; core/perfmodel.py (the H100 profile) and
-# core/__init__.py (its export) carry the port's additions
+# core/__init__.py (its export) carry the port's additions; obs/__init__.py's
+# docstring names the port (test_obs_init_is_repros_code)
+NOT_COPIED = ("core/perfmodel.py", "core/__init__.py", "obs/__init__.py")
 COPIED = sorted(
     str(p.relative_to(ROOT / "src" / "repro"))
-    for d in ("core", "data", "provision", "pool")
+    for d in ("core", "data", "provision", "pool", "chaos", "obs", "pilot", "orchestrator",
+              "serving")
     for p in (ROOT / "src" / "repro" / d).glob("*.py")
-    if str(p.relative_to(ROOT / "src" / "repro")) not in ("core/perfmodel.py",
-                                                            "core/__init__.py")
-) + ["obs/trace.py", "runtime/fault.py"]
+    if str(p.relative_to(ROOT / "src" / "repro")) not in NOT_COPIED
+) + ["runtime/fault.py"]
 
 
 @pytest.mark.parametrize("rel", COPIED)
@@ -37,6 +41,54 @@ def test_copy_is_byte_identical(rel):
 def test_copies_cover_provision_and_pool():
     assert {"provision/service.py", "provision/backends.py", "pool/manager.py",
             "pool/eviction.py", "provision/__init__.py", "pool/__init__.py"} <= set(COPIED)
+
+
+@pytest.mark.parametrize("layer,n", [("chaos", 4), ("obs", 9), ("pilot", 4),
+                                     ("orchestrator", 7), ("serving", 6)])
+def test_copies_cover_campaign_layers(layer, n):
+    """Every module of each campaign layer is copied and listed, the
+    layer's ``__init__.py`` included; obs/__init__.py alone is held by its
+    code."""
+    files = {str(p.relative_to(ROOT / "src" / "repro"))
+             for p in (ROOT / "src" / "repro" / layer).glob("*.py")}
+    assert len(files) == n
+    assert files - {"obs/__init__.py"} <= set(COPIED)
+    port = {str(p.relative_to(ROOT / "src" / "repro_torch"))
+            for p in (ROOT / "src" / "repro_torch" / layer).glob("*.py")}
+    assert port == files
+
+
+def _code_and_names(path):
+    tree = ast.parse(path.read_text())
+    body = tree.body
+    if body and isinstance(body[0], ast.Expr) and isinstance(body[0].value, ast.Constant):
+        body = body[1:]
+    names, all_ = set(), None
+    for node in body:
+        if isinstance(node, ast.ImportFrom):
+            names |= {a.asname or a.name for a in node.names}
+        elif isinstance(node, ast.Assign) and any(getattr(t, "id", None) == "__all__"
+                                                  for t in node.targets):
+            all_ = ast.literal_eval(node.value)
+    return ast.dump(ast.Module(body=body, type_ignores=[])), names, all_
+
+
+def test_obs_init_is_repros_code():
+    """The port's obs/__init__.py: repro's code, with a docstring of its own
+    (a byte copy's indented ``from repro.obs ...`` lines would fail the
+    import guard)."""
+    port = ROOT / "src" / "repro_torch" / "obs" / "__init__.py"
+    ref = ROOT / "src" / "repro" / "obs" / "__init__.py"
+    code, names, all_ = _code_and_names(port)
+    ref_code, ref_names, ref_all = _code_and_names(ref)
+    assert code == ref_code
+    assert (names, all_) == (ref_names, ref_all) and set(all_) <= names
+    assert ast.get_docstring(ast.parse(port.read_text())) != ast.get_docstring(
+        ast.parse(ref.read_text()))
+    import repro.obs
+    import repro_torch.obs
+    assert repro_torch.obs.__all__ == repro.obs.__all__
+    assert all(hasattr(repro_torch.obs, n) for n in repro_torch.obs.__all__)
 
 
 def _pkg(name: str):

@@ -41,20 +41,20 @@ SHAPE = (4, 2048, 24, 8, 128)
 # (text in the source, phase read just before it, phase read just after it)
 MARKS = [
     ("  mbar_wait(bar_kv, 0);\n", None, "wait K, V"),
-    ("    mbar_wait(full(s), (i / STAGES) & 1);\n", "loop top", "wait Q, dO stage"),
+    ("    mbar_wait(full(s), (i / NST) & 1);\n", "loop top", "wait Q, dO stage"),
     ("    wgmma_commit();\n    wgmma_wait<1>();\n    fence_regs(sc);\n", "issue S^T, dP^T",
      "wait S^T"),
     ("    uint32_t pp[BQ / 4];\n", "P: exp2 and mask", None),
     ("    // dV += P^T dO, dO MN-major", "P: pack", None),
-    ("    wgmma_wait<1>();                            // dP^T done, dV may still run\n",
+    ("      wgmma_wait<1>();                          // dP^T done, dV may still run\n",
      "issue dV", "wait dP^T"),
     ("    // dK += dS^T Q, Q MN-major", "dS^T: form and store", None),
-    ("    named_bar(1, 128 * NWG);\n", "issue dK, bulk read wait", "barrier dS^T"),
+    ("    named_bar(1, 128 * NWG);\n", "issue dK", "barrier dS^T"),
     ("    wgmma_commit();\n    wgmma_wait<0>();\n", "issue dQ", "wait dV, dK, dQ"),
     ("    fence_proxy_async();\n    named_bar(2 + wg, 128);\n", "release stage, dQ store",
      "barrier dQ"),
     ("    if (++qt == qt_begin + nqt) {\n      qt = qt_begin;\n      ++h;\n    }\n  }\n",
-     "issue reductions", None),
+     "hand dQ to the writer", None),
 ]
 
 
@@ -82,7 +82,10 @@ def instrument(src: str) -> tuple[str, list[str]]:
     flush = (f"  if (threadIdx.x == 0) {{ atomicAdd(&g_phase[{n}], (unsigned long long)iters);\n"
              f"    for (int k = 0; k < {n}; ++k) "
              f"atomicAdd(&g_phase[k], (unsigned long long)s_prof[k]); }}\n")
-    out = out.replace("  if (tid == 0) bulk_wait();\n", "  if (tid == 0) bulk_wait();\n" + flush, 1)
+    anchor = "  const int64_t k_row = (int64_t)K * HD;\n"
+    if out.count(anchor) != 1:
+        raise RuntimeError(f"mark not found once in the source: {anchor!r}")
+    out = out.replace(anchor, flush + anchor, 1)
     out = out.replace("namespace {\n", "__device__ unsigned long long g_phase[32];\n\n"
                       "namespace {\n", 1)
     out += ('\nextern "C" int read_phases(unsigned long long* host) {\n'
@@ -109,7 +112,8 @@ def main() -> int:
 
     from repro_torch.device import resolve_device
     from repro_torch.kernels import build as kbuild
-    from repro_torch.kernels.flash_attention import (_BWD_SIGNATURES, flash_attention_bwd_cuda,
+    from repro_torch.kernels.flash_attention import (_BWD_SIGNATURES, bwd_sem_count,
+                                                     flash_attention_bwd_cuda,
                                                      flash_attention_cuda)
     dev = resolve_device("cuda")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -148,14 +152,15 @@ def main() -> int:
     lib.flash_attention_bwd.argtypes = _BWD_SIGNATURES["flash_attention_bwd"]
     f32 = dict(dtype=torch.float32, device=dev)
     D, dq_acc = torch.empty((B, H, S), **f32), torch.empty(q.shape, **f32)
+    sem = torch.empty(bwd_sem_count(B, S, H), dtype=torch.int32, device=dev)
     outs = [torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)]
     stream = torch.cuda.current_stream(dev).cuda_stream
 
     def call():
         err = lib.flash_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), D.data_ptr(), dq_acc.data_ptr(), *(t.data_ptr() for t in outs),
-            B, S, S, H, K, hd, 1, -1, 1, stream)
+            lse.data_ptr(), D.data_ptr(), dq_acc.data_ptr(), sem.data_ptr(),
+            *(t.data_ptr() for t in outs), B, S, S, H, K, hd, 1, -1, 1, stream)
         if err:
             raise RuntimeError(f"flash_attention_bwd: CUDA error {err}")
 

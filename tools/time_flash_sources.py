@@ -12,13 +12,16 @@ nvcc each, all at once, checked once against the plain version (bf16,
 times) with no lse written, as serving calls it, by CUDA events over
 back-to-back launches at the qwen3-14b (B 8, S 512, H 40, K 8, hd 128) and
 zamba2-7b (B 8, S 512, H 32, K 32, hd 112) prefill shapes. With ``--bwd``
-each ``.cu`` is a copy of ``src/repro_torch/csrc/flash_attention_bwd.cu``
-(its C interface unchanged), checked against the plain backward (2e-2 of
-each output's max|grad|, bf16) and timed the same way at B 4, S 2048, H 24,
-K 8, hd 128, causal, bf16. Prints one JSON line per variant and shape and
-the card's name and power limit. Run from the repository root:
+each ``.cu`` is a copy of ``src/repro_torch/csrc/flash_attention_bwd.cu``,
+with or without the dq counters (``sem``) in its C interface, checked
+against the plain backward (2e-2 of each output's max|grad|, bf16), run 5
+times more to count the calls whose dq differs from the first's in any bit,
+and timed the same way at the training shapes of ``BWD_SHAPES`` (bf16, or
+``--dtype float32``, held to 1e-4).
+Prints one JSON line per variant and shape and the card's name and power
+limit. Run from the repository root:
 
-    python3 tools/time_flash_sources.py A.cu B.cu [--rounds 3] [--bwd]
+    python3 tools/time_flash_sources.py A.cu B.cu [--rounds 3] [--bwd [--dtype float32]]
 """
 
 from __future__ import annotations
@@ -34,7 +37,12 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 SHAPES = {"qwen3-14b": (8, 512, 40, 8, 128), "zamba2-7b": (8, 512, 32, 32, 112)}
-BWD_SHAPES = {"phi4-mini-3.8b train": (4, 2048, 24, 8, 128)}
+# (B, S, T, H, K, hd, causal): the training shapes of chip_smoke.py's kernel phase
+BWD_SHAPES = {"phi4-mini-3.8b train": (4, 2048, 2048, 24, 8, 128, True),
+              "granite-moe-1b-a400m train": (4, 2048, 2048, 16, 8, 64, True),
+              "gemma3-12b global train": (4, 2048, 2048, 16, 8, 256, True),
+              "whisper-tiny encoder train": (4, 1500, 1500, 6, 6, 64, False),
+              "whisper-tiny cross train": (4, 448, 1500, 6, 6, 64, False)}
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
@@ -61,31 +69,38 @@ def main() -> int:
     ap.add_argument("--rounds", type=int, default=3)
     ap.add_argument("--iters", type=int, default=20)
     ap.add_argument("--bwd", action="store_true", help="time flash_attention_bwd variants")
+    ap.add_argument("--dtype", choices=("bfloat16", "float32"), default="bfloat16",
+                    help="the backward's inputs (with --bwd)")
     args = ap.parse_args()
 
     import torch
 
     from repro_torch.device import resolve_device
-    from repro_torch.kernels.flash_attention import (_BWD_SIGNATURES, flash_attention_bwd_plain,
+    from repro_torch.kernels.flash_attention import (_BWD_SIGNATURES, bwd_sem_count,
+                                                     flash_attention_bwd_plain,
                                                      flash_attention_cuda, flash_attention_plain)
     dev = resolve_device("cuda")
     variants = []
     for src, so in zip(args.sources, build(args.sources)):
-        with_lse = "void* lse" in open(src).read()
+        text = open(src).read()
         lib = ctypes.CDLL(so)
         if args.bwd:
-            lib.flash_attention_bwd.argtypes = _BWD_SIGNATURES["flash_attention_bwd"]
+            # with or without the counters that order dq's additions
+            with_ptr = "void* sem" in text
+            lib.flash_attention_bwd.argtypes = (_BWD_SIGNATURES["flash_attention_bwd"]
+                                                [(0 if with_ptr else 1):])
             lib.flash_attention_bwd.restype = ctypes.c_int
         else:
-            lib.flash_attention_fwd.argtypes = [_P] * (5 if with_lse else 4) + [_I] * 9 + [_P]
+            with_ptr = "void* lse" in text
+            lib.flash_attention_fwd.argtypes = [_P] * (5 if with_ptr else 4) + [_I] * 9 + [_P]
             lib.flash_attention_fwd.restype = ctypes.c_int
-        variants.append((lib, with_lse))
+        variants.append((lib, with_ptr))
     stream = torch.cuda.current_stream(dev).cuda_stream
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip().splitlines()[0]
     if args.bwd:
         return time_bwd(args, torch, dev, variants, stream, smi, flash_attention_cuda,
-                        flash_attention_bwd_plain)
+                        flash_attention_bwd_plain, bwd_sem_count)
 
     def launch(variant, q, k, v, o):
         lib, with_lse = variant
@@ -139,38 +154,54 @@ def time_in_turns(torch, n: int, launch, rounds: int, iters: int) -> list[list[f
     return times
 
 
-def time_bwd(args, torch, dev, variants, stream, smi, flash_fwd, bwd_plain) -> int:
-    for name, (B, S, H, K, hd) in BWD_SHAPES.items():
+def time_bwd(args, torch, dev, variants, stream, smi, flash_fwd, bwd_plain, sem_count) -> int:
+    for name, (B, S, T, H, K, hd, causal) in BWD_SHAPES.items():
         g = torch.Generator(device=dev).manual_seed(4)
-        q, k, v, do = (torch.randn(s, generator=g, device=dev).to(torch.bfloat16)
-                       for s in ((B, S, H, hd), (B, S, K, hd), (B, S, K, hd), (B, S, H, hd)))
-        o, lse = flash_fwd(q, k, v, return_lse=True)
+        dtype = getattr(torch, args.dtype)
+        q, k, v, do = (torch.randn(s, generator=g, device=dev).to(dtype)
+                       for s in ((B, S, H, hd), (B, T, K, hd), (B, T, K, hd), (B, S, H, hd)))
+        o, lse = flash_fwd(q, k, v, causal=causal, return_lse=True)
         f32 = dict(dtype=torch.float32, device=dev)
         D, dq_acc = torch.empty((B, H, S), **f32), torch.empty(q.shape, **f32)
-        outs = [torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)]
+        sem = torch.empty(sem_count(B, S, H), dtype=torch.int32, device=dev)
+        # float32 writes dq into dq_acc itself, as the wrapper does
+        outs = [dq_acc if dtype == torch.float32 else torch.empty_like(q),
+                torch.empty_like(k), torch.empty_like(v)]
 
         def launch(i, _k):
-            err = variants[i][0].flash_attention_bwd(
+            lib, with_sem = variants[i]
+            err = lib.flash_attention_bwd(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
-                lse.data_ptr(), D.data_ptr(), dq_acc.data_ptr(), *(t.data_ptr() for t in outs),
-                B, S, S, H, K, hd, 1, -1, 1, stream)
+                lse.data_ptr(), D.data_ptr(), dq_acc.data_ptr(),
+                *([sem.data_ptr()] if with_sem else []), *(t.data_ptr() for t in outs),
+                B, S, T, H, K, hd, int(causal), -1, int(dtype == torch.bfloat16), stream)
             if err:
                 raise RuntimeError(f"flash_attention_bwd: CUDA error {err}")
 
-        want = bwd_plain(q, k, v, o, lse, do)
-        errs = []
+        want = bwd_plain(q, k, v, o, lse, do, causal=causal)
+        errs, repeats = [], []
         for i in range(len(variants)):
             launch(i, 0)
             torch.cuda.synchronize()
             err = max(float((a.float() - w.float()).abs().max() / w.float().abs().max())
                       for a, w in zip(outs, want))
-            if not err < 2e-2:
+            if not err < (2e-2 if dtype == torch.bfloat16 else 1e-4):
                 raise AssertionError(f"{args.sources[i]} disagrees with the plain backward: {err}")
             errs.append(err)
+            # the calls of 5 more launches whose dq differs from the first's in any bit
+            first = outs[0].clone()
+            differ = 0
+            for _ in range(5):
+                launch(i, 0)
+                torch.cuda.synchronize()
+                differ += not torch.equal(outs[0], first)
+            repeats.append(differ)
         del want
         times = time_in_turns(torch, len(variants), launch, args.rounds, max(2, args.iters // 4))
         for i, src in enumerate(args.sources):
             print(json.dumps({"source": src, "shape": name, "err_of_max_grad": errs[i],
+                              "dtype": args.dtype, "dq_differs_in_repeats": repeats[i],
+                              "of_repeats": 5,
                               "ms": times[i], "mean_ms": sum(times[i]) / len(times[i]),
                               "card": smi}), flush=True)
     print(smi, flush=True)

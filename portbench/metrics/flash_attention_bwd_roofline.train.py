@@ -1,0 +1,10 @@
+"""flash_attention_bwd's share of its roofline in the window: the least time its calls
+could take (the larger of bytes over HBM bandwidth and operations over the
+peak, from kernels/flash_attention_bwd.py at each call's shape), summed, over the
+kernel's device time."""
+
+KERNEL = "flash_attention_bwd"
+
+
+def read(w):
+    return w.roofline(KERNEL)

@@ -1,0 +1,10 @@
+"""rmsnorm_bwd's share of its roofline in the window: the least time its calls
+could take (the larger of bytes over HBM bandwidth and operations over the
+peak, from kernels/rmsnorm_bwd.py at each call's shape), summed, over the
+kernel's device time."""
+
+KERNEL = "rmsnorm_bwd"
+
+
+def read(w):
+    return w.roofline(KERNEL)

@@ -17,6 +17,7 @@ import numpy as np
 from ..core.client import FSClient
 from ..core.datamanager import DataManager
 from ..core.staging import StageReport, stage
+from ..spans import spanned, tally
 from .synthetic import batch_for_step, corpus_bytes, token_block
 
 TOKEN_BYTES = 4  # int32
@@ -90,10 +91,12 @@ class Loader:
             raw = self._client.pread(
                 f"{self.root}/shard-{si:05d}.tok", off * TOKEN_BYTES, take * TOKEN_BYTES
             )
+            tally(read_bytes=len(raw))
             out[got: got + take] = np.frombuffer(raw, np.int32)
             got += take
         return out
 
+    @spanned("data.batch_at")
     def batch_at(self, step: int) -> dict[str, np.ndarray]:
         if self._client is None:
             return batch_for_step(

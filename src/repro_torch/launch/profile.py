@@ -25,7 +25,7 @@ gathers/scatters/index ops and scans, everything else) and by kernel. On a
 MoE model the sort and gather categories hold the routing and dispatch (with
 the embedding lookup and, in training, the loss's gather); a further line
 splits the MoE layers' device time by function of ``models/moe.py``
-(``moe_breakdown``, ``models.moe.observe``'s spans on for that window only: one
+(``moe_breakdown``, the program's spans recorded for that window only: one
 prefill and one decode step, or the train step's forward and recompute).
 Needs a CUDA device.
 
@@ -46,7 +46,8 @@ from torch.profiler import ProfilerActivity, profile
 
 from ..configs import get_config
 from ..device import resolve_device
-from ..models import build_model, moe
+from ..models import build_model
+from .. import spans
 from .serve import model_inputs
 
 CATEGORIES = (
@@ -153,7 +154,7 @@ def moe_breakdown(fn, device: torch.device) -> dict:
     others) and the op to the spans around it; kernels launched from
     elsewhere, the autograd backward included, are left out."""
     torch.cuda.synchronize(device)
-    with moe.observe(spans=True), \
+    with spans.record(profiler=True), \
             profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize(device)

@@ -10,6 +10,7 @@ import torch.utils.checkpoint
 
 from ..configs.base import ModelConfig
 from ..hints import get_mesh_hint
+from ..spans import spanned
 
 
 def tree_map(fn: Callable, tree, *rest):
@@ -67,7 +68,9 @@ def remat_wrap(fn: Callable, policy: Optional[str]) -> Callable:
     ``None``/``"none"`` keeps every activation; ``"full"`` keeps only the
     wrapped function's inputs and recomputes the rest in the backward.
     ``"dots"`` (JAX's ``dots_with_no_batch_dims_saveable``, which keeps the
-    matmul outputs) has no torch twin and is taken as ``"full"``."""
+    matmul outputs) has no torch twin and is taken as ``"full"``. Each call of
+    the layer, and under remat each recompute, runs in a ``model.layer`` span."""
+    fn = spanned("model.layer")(fn)
     if policy is None or policy == "none":
         return fn
     if policy not in ("full", "dots"):

@@ -29,6 +29,7 @@ from torch.distributed.tensor import DTensor
 
 from ..configs.base import ModelConfig
 from ..kernels.sharded import cache_write_prefix
+from ..spans import span
 from .attention import KVCache, attention, attn_init, split_heads
 from .common import Model, remat_wrap, serving, stack_init, unstack
 from .layers import (
@@ -137,7 +138,8 @@ def loss_fn(params, batch, cfg: ModelConfig, *, remat=None):
     for lp in unstack(params["dec_layers"], cfg.n_layers):
         x = layer(lp, x, enc_out)
     h = norm(params["final_norm"], x, cfg.norm_eps)
-    ce = cross_entropy_loss(unembed(params["unembed"], h), batch["labels"])
+    with span("model.head"):
+        ce = cross_entropy_loss(unembed(params["unembed"], h), batch["labels"])
     return ce, {"ce": ce, "aux": torch.zeros((), device=ce.device)}
 
 

@@ -22,6 +22,7 @@ from torch.distributed.tensor import DTensor
 
 from ..configs.base import ModelConfig
 from ..kernels.sharded import cache_write_prefix
+from ..spans import span
 from .attention import KVCache, attention, attn_init
 from .common import Model, remat_wrap, serving, stack_init, tree_map
 from .layers import (
@@ -219,7 +220,8 @@ def loss_fn(params, batch, cfg: ModelConfig, *, remat=None):
     positions = torch.arange(x.shape[1], device=x.device)
     h = _forward(params, cfg, x, positions, remat=remat)
     h = norm(params["final_norm"], h, cfg.norm_eps)
-    ce = cross_entropy_loss(_logits(params, h), batch["labels"])
+    with span("model.head"):
+        ce = cross_entropy_loss(_logits(params, h), batch["labels"])
     return ce, {"ce": ce, "aux": torch.zeros((), device=ce.device)}
 
 

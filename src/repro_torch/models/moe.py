@@ -28,56 +28,41 @@ combine run on each rank's own rows (``local_map``); between them the
 "moe2d" flag it stays (B, E, C, d), batch over dp and experts over "model",
 and only the combine gathers the expert outputs over "model".
 
-``observe`` is the one hook for tools that watch the MoE layers (comparison
-runs, tests, ``launch/profile.py``): a routing hook that ``route`` calls
-with what it computed, and ``record_function("moe.<name>")`` spans around
-``route``, ``dispatch_plan``, ``experts`` and ``load_balance_aux``. Off, each
-costs one test per call.
+``observe`` is the one hook for comparison runs and tests to see the
+routing: a routing hook that ``route`` calls with what it computed. The
+program's spans (``spans.py``) run around ``route``, ``dispatch_plan``,
+``experts`` and ``load_balance_aux`` as ``moe.<name>``; ``launch/profile.py``
+records them. Off, each costs one test per call.
 """
 
 from __future__ import annotations
 
 import contextlib
-import functools
 
 import torch
 import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Partial
 from torch.distributed.tensor.experimental import local_map
-from torch.profiler import record_function
 
 from ..configs.base import ModelConfig
 from ..hints import constrain, flag
+from ..spans import spanned
 from .layers import dense_init
 
 _ROUTE_HOOK = None     # hook(p, x, logits, probs, w, idx) -> (w, idx)
-_SPANS = False
 
 
 @contextlib.contextmanager
-def observe(route_hook=None, spans: bool = False):
+def observe(route_hook=None):
     """Inside, ``route`` passes each call's (p, x, logits, probs, w, idx) to
-    ``route_hook`` and returns the (w, idx) it gives back; with ``spans``,
-    each stage runs in a ``record_function("moe.<name>")`` span."""
-    global _ROUTE_HOOK, _SPANS
-    saved = _ROUTE_HOOK, _SPANS
-    _ROUTE_HOOK, _SPANS = route_hook, spans
+    ``route_hook`` and returns the (w, idx) it gives back."""
+    global _ROUTE_HOOK
+    saved = _ROUTE_HOOK
+    _ROUTE_HOOK = route_hook
     try:
         yield
     finally:
-        _ROUTE_HOOK, _SPANS = saved
-
-
-def _spanned(fn):
-    name = f"moe.{fn.__name__}"
-
-    @functools.wraps(fn)
-    def run(*args, **kwargs):
-        if not _SPANS:
-            return fn(*args, **kwargs)
-        with record_function(name):
-            return fn(*args, **kwargs)
-    return run
+        _ROUTE_HOOK = saved
 
 
 def moe_init(gen: torch.Generator, cfg: ModelConfig, *, dtype=torch.float32):
@@ -100,7 +85,7 @@ def _capacity(S: int, cfg: ModelConfig) -> int:
     return max(1, c)
 
 
-@_spanned
+@spanned("moe.dispatch_plan")
 def dispatch_plan(idx: torch.Tensor, E: int, C: int):
     """Per-row dispatch plan, batched over rows. idx: (B, S, k) expert ids.
 
@@ -127,7 +112,7 @@ def dispatch_plan(idx: torch.Tensor, E: int, C: int):
     return slot_tok, slots
 
 
-@_spanned
+@spanned("moe.route")
 def route(p, x: torch.Tensor, cfg: ModelConfig):
     """x: (B, S, d) -> (logits (B,S,E) f32, probs (B,S,E) f32, w (B,S,k) in
     x's dtype, renormalised, idx (B,S,k)); top-k sorted descending."""
@@ -140,7 +125,7 @@ def route(p, x: torch.Tensor, cfg: ModelConfig):
     return logits, probs, w, idx
 
 
-@_spanned
+@spanned("moe.experts")
 def experts(p, x: torch.Tensor, w: torch.Tensor, idx: torch.Tensor, cfg: ModelConfig):
     """Dispatch, expert products and combine for a given routing (w, idx).
 
@@ -222,7 +207,7 @@ def _experts_sharded(p, x: DTensor, w, idx, cfg: ModelConfig):
                      device_mesh=mesh)(out, slots, w)
 
 
-@_spanned
+@spanned("moe.load_balance_aux")
 def load_balance_aux(probs: torch.Tensor, idx: torch.Tensor, E: int) -> torch.Tensor:
     """Switch aux: E * sum_e (fraction of dispatches to e) * (mean prob of e)."""
     if isinstance(idx, DTensor):     # each rank counts its rows; the counts add up

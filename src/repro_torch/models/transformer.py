@@ -35,6 +35,7 @@ from torch.distributed.tensor import DTensor
 
 from ..configs.base import ModelConfig
 from ..kernels.sharded import cache_write_prefix
+from ..spans import span
 from .attention import KVCache, attention, attn_init
 from .common import Model, remat_wrap, serving, stack_init, tree_map, unstack
 from .layers import (
@@ -188,7 +189,8 @@ def loss_fn(params, batch, cfg: ModelConfig, *, remat: Optional[str] = None):
     positions = torch.arange(x.shape[1], device=x.device)
     h, aux = _forward(params, cfg, x, positions, remat=remat)
     h = norm(params["final_norm"], h, cfg.norm_eps)[:, n_prefix:]
-    ce = cross_entropy_loss(_logits(params, h), batch["labels"])
+    with span("model.head"):
+        ce = cross_entropy_loss(_logits(params, h), batch["labels"])
     if not torch.is_tensor(aux):                 # no MoE layer
         aux = torch.zeros((), device=ce.device)
     return ce + MOE_AUX_COEF * aux, {"ce": ce, "aux": aux}

@@ -26,6 +26,7 @@ import torch
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from ..configs.base import ModelConfig
+from ..spans import span
 from .common import Model, remat_wrap, serving, stack_init, tree_map, unstack
 from .layers import cross_entropy_loss, dtype_of, embed, embed_init, norm, rmsnorm_init, unembed
 from .xlstm import (
@@ -107,7 +108,8 @@ def loss_fn(params, batch, cfg: ModelConfig, *, remat=None):
     ``batch["labels"]`` (-100 ignored). Returns (loss, {"ce", "aux"}), aux 0."""
     x = embed(params["embed"], batch["tokens"])
     h = norm(params["final_norm"], _forward(params, cfg, x, remat=remat), cfg.norm_eps)
-    ce = cross_entropy_loss(_logits(params, h), batch["labels"])
+    with span("model.head"):
+        ce = cross_entropy_loss(_logits(params, h), batch["labels"])
     return ce, {"ce": ce, "aux": torch.zeros((), device=ce.device)}
 
 

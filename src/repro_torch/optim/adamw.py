@@ -26,6 +26,7 @@ import torch
 from torch.distributed.tensor import DTensor
 
 from ..models.common import tree_map
+from ..spans import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -87,8 +88,9 @@ def update(grads, state: OptState, params, cfg: AdamWConfig, lr_scale=1.0):
     """Returns (new_params, new_state, stats). ``lr_scale`` multiplies cfg.lr
     (schedules pass the factor)."""
     step = state.step + 1
-    gnorm = global_norm(grads)
-    scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
+    with span("optim.clip"):
+        gnorm = global_norm(grads)
+        scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
     b1, b2 = cfg.b1, cfg.b2
     stepf = step.to(torch.float32)
     bc1 = 1.0 - torch.pow(torch.tensor(b1, dtype=torch.float32, device=stepf.device), stepf)

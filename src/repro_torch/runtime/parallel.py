@@ -34,6 +34,7 @@ from .. import optim
 from ..hints import constrain, mesh_hint
 from ..models.common import Model, tree_map
 from ..optim.adamw import leaves
+from ..spans import span
 from . import sharding as sh
 
 
@@ -84,8 +85,10 @@ def loss_and_grads(model: Model, params, batch, *, remat: Optional[str] = None):
     flat = leaves(params)
     for p in flat:
         p.requires_grad_(True)
-    loss, metrics = model.loss(params, batch, remat=remat)
-    grads = [_placed_like(g, p) for g, p in zip(torch.autograd.grad(loss, flat), flat)]
+    with span("step.forward"):
+        loss, metrics = model.loss(params, batch, remat=remat)
+    with span("step.backward"):
+        grads = [_placed_like(g, p) for g, p in zip(torch.autograd.grad(loss, flat), flat)]
     return loss.detach(), {k: v.detach() for k, v in metrics.items()}, \
         _unflatten_like(params, grads)
 
@@ -130,11 +133,12 @@ def make_train_step(model: Model, rt: RuntimeConfig) -> Callable:
             loss, metrics, grads = grads_of(state.params, batch)
 
         ef = state.ef
-        if rt.compress_grads:
-            grads, ef, _ = optim.compress_grads(grads, state.ef)
-        params, opt, stats = optim.update(
-            grads, state.opt, state.params, rt.opt,
-            lr_scale=sched(state.opt.step.to(torch.float32)))
+        with span("step.optimizer"):
+            if rt.compress_grads:
+                grads, ef, _ = optim.compress_grads(grads, state.ef)
+            params, opt, stats = optim.update(
+                grads, state.opt, state.params, rt.opt,
+                lr_scale=sched(state.opt.step.to(torch.float32)))
         return TrainState(params, opt, ef), {"loss": loss, **metrics, **stats}
 
     return train_step

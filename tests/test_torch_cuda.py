@@ -23,7 +23,8 @@ lse and backward and the decode kernel, and the smoke xLSTM and Whisper
 serving and training on the card against the CPU; the decode kernel's lse
 output at the qwen3-14b and gemma3 global decode shapes and kv_len 0; the
 elastic restart (mirrored checkpoints, a storage node lost, the restore bit
-for bit) on the smoke phi4-mini and whisper. Every test here
+for bit) on the smoke phi4-mini and whisper; the program's spans holding the
+launches made inside them on the profiler's clock. Every test here
 carries the ``cuda`` marker and skips without a card. The file imports no JAX,
 so it runs where only PyTorch is installed:
 
@@ -834,3 +835,42 @@ def test_elastic_restart_on_card(cuda_card, arch):
     assert res["restored_mismatches"] == 0 and res["degraded"]
     assert res["live_loss"] == res["resumed_loss"] and np.isfinite(res["losses"]).all()
     assert ops.LAUNCHES["flash_attention_bwd"] > 0 and ops.LAUNCHES["rmsnorm_bwd"] > 0
+
+
+def test_launches_land_inside_their_spans_on_the_profilers_clock(cuda_card):
+    """Kernels launched inside two spans on the card, profiled with the CUDA
+    activity alone (as the benchmark's traced window is): each kernel's
+    correlation id finds its host-side launch (a ``cuda*`` or ``cu*`` API
+    call), and each launch, put on the spans' clock by the recording's
+    offsets, lies inside the span that launched it, not the other."""
+    import time
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import spans
+    x = torch.randn(1024, 1024, device=cuda_card)
+    torch.cuda.synchronize()
+    with spans.record() as rec, profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for name in ("a", "b"):
+            with spans.span(name):
+                for _ in range(5):
+                    x = (x @ x).tanh_()
+            time.sleep(0.005)
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    events = list(prof.profiler.kineto_results.events())
+    launched = {e.correlation_id(): e.start_ns() for e in events
+                if e.device_type() != cuda and e.correlation_id() and e.name().startswith("cu")}
+    kernels = [e for e in events if e.device_type() == cuda]
+    assert len(kernels) >= 10
+    slack = 500_000                                         # 0.5 ms; the spans are 5 ms apart
+    held = {"a": 0, "b": 0}
+    for k in kernels:
+        assert k.correlation_id() in launched, k.name()
+        t = launched[k.correlation_id()]
+        inside = [s.name for s in rec.spans
+                  if rec.to_profiler_ns(s.start_ns) - slack <= t <= rec.to_profiler_ns(s.end_ns)
+                  + slack]
+        assert len(inside) == 1, (k.name(), inside)
+        held[inside[0]] += 1
+    assert held["a"] == held["b"] == len(kernels) // 2

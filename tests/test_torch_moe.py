@@ -35,7 +35,7 @@ from repro import optim as joptim  # noqa: E402
 from repro.configs import get_smoke  # noqa: E402
 from repro.models import build_model as jax_build_model  # noqa: E402
 from repro.models import moe as jmoe  # noqa: E402
-from repro_torch import optim, runtime  # noqa: E402
+from repro_torch import optim, runtime, spans  # noqa: E402
 from repro_torch.convert import from_numpy, train_state_from_numpy  # noqa: E402
 from repro_torch.models import build_model, moe  # noqa: E402
 from repro_torch.optim.adamw import leaves  # noqa: E402
@@ -370,8 +370,9 @@ def test_serve_driver_moe_on_cpu():
 
 
 def test_profile_traces_ops_to_moe_functions():
-    """``launch.profile``'s MoE breakdown turns ``moe.observe``'s spans on
-    around the functions of ``models/moe.py`` for its window only and finds, for the ops of a smoke
+    """``launch.profile``'s MoE breakdown records the program's spans
+    (``spans.record(profiler=True)``) around the functions of ``models/moe.py``
+    for its window only and finds, for the ops of a smoke
     prefill, the function that ran each (host activity here; on the card the
     same walk sums the kernels of those ops)."""
     from torch.profiler import ProfilerActivity, profile
@@ -380,9 +381,9 @@ def test_profile_traces_ops_to_moe_functions():
     cfg = get_smoke("qwen3-moe-30b-a3b")
     model = build_model(cfg)
     params = model.init(torch.Generator().manual_seed(0))
-    with moe.observe(spans=True), profile(activities=[ProfilerActivity.CPU]) as prof:
+    with spans.record(profiler=True), profile(activities=[ProfilerActivity.CPU]) as prof:
         model.prefill(params, {"tokens": torch.randint(0, cfg.vocab_size, (2, 16))}, 20)
-    assert not moe._SPANS
+    assert spans.span("moe.route") is spans.OFF
     found = {_moe_function(e) for e in prof.events() if e.name.startswith("aten::")}
     assert found == {None, "route", "dispatch_plan", "experts", "load_balance_aux"}
 
@@ -413,7 +414,7 @@ def test_route_hook_sees_every_call_and_its_routing_is_used(pair):
 
 @pytest.mark.parametrize("exit_by", ["return", "error"])
 def test_observe_is_off_outside_its_block(exit_by):
-    """Outside ``moe.observe`` no hook runs and no ``moe.*`` span is
+    """Outside ``moe.observe`` and ``spans.record`` no hook runs and no ``moe.*`` span is
     recorded, also after the block was left by an error."""
     from torch.profiler import ProfilerActivity, profile
     cfg = get_smoke("qwen3-moe-30b-a3b")
@@ -425,7 +426,7 @@ def test_observe_is_off_outside_its_block(exit_by):
         calls.append(1)
         return w, idx
     try:
-        with moe.observe(route_hook=hook, spans=True):
+        with moe.observe(route_hook=hook), spans.record(profiler=True):
             moe.moe_ffn(p, x, cfg)
             if exit_by == "error":
                 raise RuntimeError("left by an error")

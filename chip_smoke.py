@@ -18,7 +18,11 @@ Phases, each printing one JSON line to stdout:
              and state and 1e-5 on tot; the backward kernels (flash_attention_bwd,
              rmsnorm_bwd, ssd_intra_chunk_bwd) at 2e-2 (bf16) and 1e-4 (float32)
              of each output's max|grad|, ssd_intra_chunk_bwd against its plain
-             version in float64. Kernel, plain and one-PyTorch-call (``library_ms``, a
+             version in float64; AdamW's fused update (``adamw``, bit for bit in
+             m, v, master and param) and the clip's sum of squares
+             (``grad_sumsq``, float64 within 1e-6) at phi4-mini's tied embedding,
+             a stacked layer leaf and ragged tails, gradient and param in bf16
+             and in float32. Kernel, plain and one-PyTorch-call (``library_ms``, a
              yardstick the port never calls; autograd through it for a
              backward) times, inputs and outputs rotated over copies so
              that no call finds the last one's data in L2
@@ -174,6 +178,8 @@ TRAIN_SEQ = {WH: 448}                      # whisper's text context
 GEM_TRAIN_LOCAL = GEM + " train local"     # gemma3's local layers' training shapes
 WH_TRAIN_ENC, WH_TRAIN_CROSS = WH + " train encoder", WH + " train cross"
 XL_TRAIN, XL_TRAIN_INNER = XL + " train", XL + " train d_inner"
+PHI_LEAF = PHI + " layer leaf"             # AdamW's stacked leaf of 8 layers' MLP weights
+ADAMW_KW = dict(b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1)
 
 
 def emit(obj) -> None:
@@ -298,6 +304,8 @@ def kernel_cases(torch):
     and ``flops`` are the work this case's inputs need; ``main`` names the
     path (qwen3-14b or zamba2-7b) whose full model gives the kernel this
     shape; ``dtypes`` and ``tols`` where the defaults do not hold."""
+    from repro_torch.kernels.adamw import (
+        adamw_plain, adamw_triton, grad_sumsq_plain, grad_sumsq_triton)
     from repro_torch.kernels.decode_attention import (
         decode_attention_cuda, decode_attention_plain)
     from repro_torch.kernels.flash_attention import (
@@ -654,6 +662,65 @@ def kernel_cases(torch):
             flops={"tf32": 3 * (6 * BC * N * tri + BC * H * (4 * P * tri + 4 * Q * P * N)),
                    "float32": BC * H * (6 * tri + 4 * Q * N)},
             main=main))
+
+    # the optimizer: phi4-mini's tied embedding (615 M elements) and a stacked
+    # leaf of its 8-layer cut, then tails that fill no block (the update's
+    # 2,048 elements, the sum of squares' 4,096). The dtype is the gradient's
+    # and the param's; m, v and the master weights are float32. The update
+    # is held to the plain version bit for bit in all four outputs (the same
+    # float32 operations in the same order); the sum of squares to float64
+    # within 1e-6 relative. Library: PyTorch's fused AdamW on float32 params
+    # and grads (another order of operations: timed only), vector_norm.
+    def adamw_make(shape):
+        def make(dtype):
+            g = torch.Generator(device=dev).manual_seed(7)
+            a = {"g": (torch.randn(shape, generator=g, device=dev) * 1e-2).to(dtype),
+                 "m": torch.randn(shape, generator=g, device=dev) * 1e-3,
+                 "v": torch.rand(shape, generator=g, device=dev) * 1e-6,
+                 "w": torch.randn(shape, generator=g, device=dev) * 2e-2,
+                 "hyper": torch.tensor([0.8, 3e-4, 0.1, 0.05], device=dev)}
+            a["p"] = a["w"].to(dtype, copy=True)           # never the master itself
+            a["pm"], a["pv"], a["pw"], a["pp"] = (a[k].clone() for k in "mvwp")
+            w32 = a["w"].clone().requires_grad_()
+            w32.grad = a["g"].float()
+            a["lib"] = torch.optim.AdamW([w32], lr=3e-4, betas=(0.9, 0.95), eps=1e-8,
+                                         weight_decay=0.1, fused=True)
+            return a
+        return make
+
+    def adamw_plain_step(a):
+        adamw_plain(a["g"], a["pm"], a["pv"], a["pw"], a["hyper"], **ADAMW_KW)
+        a["pp"].copy_(a["pw"])
+        return a["pm"], a["pv"], a["pw"], a["pp"]
+
+    def adamw_step(a):
+        adamw_triton(a["g"], a["m"], a["v"], a["w"], a["p"], a["hyper"], **ADAMW_KW)
+        return a["m"], a["v"], a["w"], a["p"]
+
+    optimizer_shapes = [((200192, 3072), PHI), ((8, 3072, 8192), PHI_LEAF),
+                        ((129, 1000), None), ((5,), None)]
+    for shape, main in optimizer_shapes:
+        n = math.prod(shape)
+        cases.append(dict(
+            kernel="adamw", desc={"shape": list(shape)}, make=adamw_make(shape),
+            tols=(0.0,) * 4, run=adamw_step, plain=adamw_plain_step,
+            library=lambda a: a["lib"].step(),
+            # g and p read or written in their dtype; m, v, master read and written
+            nbytes=lambda isz, n=n: (2 * isz + 24) * n,
+            # scale, m, v, two divisions, sqrt, eps, division, decay, lr, step
+            flops={"float32": 16 * n}, main=main))
+    for shape, main in optimizer_shapes:
+        def make(dtype, shape=shape):
+            g = torch.Generator(device=dev).manual_seed(8)
+            return {"g": randn(g, shape, dtype)}
+        n = math.prod(shape)
+        cases.append(dict(
+            kernel="grad_sumsq", desc={"shape": list(shape)}, make=make, tols=(1e-6,),
+            run=lambda a: grad_sumsq_triton([a["g"]]),
+            plain=lambda a: grad_sumsq_plain([a["g"]]),
+            oracle=lambda a: a["g"].double().square().sum(),
+            library=lambda a: torch.linalg.vector_norm(a["g"], dtype=torch.float32),
+            nbytes=lambda isz, n=n: isz * n, flops={"float32": 2 * n}, main=main))
     return cases
 
 
@@ -727,7 +794,8 @@ def expected_launches(cfg, gen: int) -> dict:
     each decoder forward 3L + 1 norms; flash 2L at the prefill (self and
     cross), decode 2L a step."""
     L = cfg.n_layers
-    bwd = {"rmsnorm_bwd": 0, "flash_attention_bwd": 0, "ssd_intra_chunk_bwd": 0}
+    bwd = {"rmsnorm_bwd": 0, "flash_attention_bwd": 0, "ssd_intra_chunk_bwd": 0, "adamw": 0,
+           "grad_sumsq": 0}                        # training's kernels
     none = {"flash_attention": 0, "decode_attention": 0, "ssd_intra_chunk": 0}
     if cfg.family == "ssm":
         return {**none, "rmsnorm": _xlstm_norms(cfg) * gen, **bwd}
@@ -743,10 +811,24 @@ def expected_launches(cfg, gen: int) -> dict:
             "decode_attention": L * (gen - 1), "ssd_intra_chunk": 0, **bwd}
 
 
-def expected_train_launches(cfg, steps: int, evals: int, remat: bool) -> dict:
+def optimizer_leaves(cfg) -> int:
+    """AdamW's leaves for ``cfg`` (its params built on fakes): a train step on
+    the card launches one ``adamw`` and one ``grad_sumsq`` for each."""
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.models import build_model
+    from repro_torch.optim.adamw import leaves
+    with FakeTensorMode():
+        return len(leaves(build_model(cfg).init(torch.Generator().manual_seed(0))))
+
+
+def expected_train_launches(cfg, steps: int, evals: int, remat: bool, leaves: int) -> dict:
     """``steps`` train steps and ``evals`` no-grad loss evaluations: a step
     runs each remat-wrapped layer's forward once, and once more in the
-    backward under remat "full", then the backward. Dense and MoE (every
+    backward under remat "full", then the backward, then AdamW's fused
+    update and sum of squares once for each of ``leaves`` (0 on a mesh,
+    whose DTensor leaves take the plain loop). Dense and MoE (every
     layer wrapped): norms per layer 2 (and 2 qk-norms), plus the final norm
     outside the remat. Hybrid (ng shared-block sites, the shared block not
     wrapped, as ``repro``'s): per mamba layer 2 norms (its own and the
@@ -758,6 +840,7 @@ def expected_train_launches(cfg, steps: int, evals: int, remat: bool) -> dict:
     norms and two attentions a decoder layer, enc_norm and the final norm
     outside."""
     fwd = 2 if remat else 1
+    opt = {"adamw": steps * leaves, "grad_sumsq": steps * leaves}
     if cfg.family == "ssm":
         nb = cfg.n_layers // cfg.slstm_period
         m_norms = 2 * nb * (cfg.slstm_period - 1)
@@ -765,14 +848,14 @@ def expected_train_launches(cfg, steps: int, evals: int, remat: bool) -> dict:
         return {"rmsnorm": steps * (once + m_norms * fwd) + evals * (once + m_norms),
                 "flash_attention": 0, "decode_attention": 0, "ssd_intra_chunk": 0,
                 "rmsnorm_bwd": steps * (once + m_norms), "flash_attention_bwd": 0,
-                "ssd_intra_chunk_bwd": 0}
+                "ssd_intra_chunk_bwd": 0, **opt}
     if cfg.family == "audio":
         E, L = cfg.encoder_layers, cfg.n_layers
         norms, attn = 2 * E + 3 * L, E + 2 * L
         return {"rmsnorm": steps * (norms * fwd + 2) + evals * (norms + 2),
                 "flash_attention": (steps * fwd + evals) * attn, "decode_attention": 0,
                 "ssd_intra_chunk": 0, "rmsnorm_bwd": steps * (norms + 2),
-                "flash_attention_bwd": steps * attn, "ssd_intra_chunk_bwd": 0}
+                "flash_attention_bwd": steps * attn, "ssd_intra_chunk_bwd": 0, **opt}
     if cfg.family == "hybrid":
         L = cfg.n_layers
         ng = L // cfg.shared_attn_every
@@ -781,12 +864,12 @@ def expected_train_launches(cfg, steps: int, evals: int, remat: bool) -> dict:
                 "flash_attention": (steps + evals) * ng, "decode_attention": 0,
                 "ssd_intra_chunk": steps * L * fwd + evals * L,
                 "rmsnorm_bwd": steps * (2 * L + site), "flash_attention_bwd": steps * ng,
-                "ssd_intra_chunk_bwd": steps * L}
+                "ssd_intra_chunk_bwd": steps * L, **opt}
     L, n = cfg.n_layers, 2 + 2 * cfg.qk_norm
     return {"rmsnorm": steps * (n * L * fwd + 1) + evals * (n * L + 1),
             "flash_attention": steps * L * fwd + evals * L, "decode_attention": 0,
             "ssd_intra_chunk": 0, "rmsnorm_bwd": steps * (n * L + 1),
-            "flash_attention_bwd": steps * L, "ssd_intra_chunk_bwd": 0}
+            "flash_attention_bwd": steps * L, "ssd_intra_chunk_bwd": 0, **opt}
 
 
 def model_inputs(torch, cfg, B: int, dev, seeded: bool = False) -> dict:
@@ -1141,7 +1224,9 @@ def run_train_reference_phase(torch, arch: str, n_layers: int = 2, n_batch: int 
         raise AssertionError(f"train reference {arch}: the card's kernel path disagrees "
                              "with the CPU plain path")
     check_launches(launches, {k: (2 if optimizer else 1) * v for k, v in
-                              expected_train_launches(cfg, 1, 0, True).items()},
+                              expected_train_launches(
+                                  cfg, 1, 0, True, optimizer_leaves(cfg) if optimizer else 0
+                              ).items()},
                    f"train reference {arch}")
     return launches
 
@@ -1169,7 +1254,8 @@ def run_train_staged_phase(torch, arch: str) -> dict:
             and all(math.isfinite(x) for x in res["losses"])):
         raise AssertionError(f"train staged {arch}: no improvement or no committed, "
                              "drained step")
-    check_launches(got, expected_train_launches(cfg, steps, 2, True), f"train staged {arch}")
+    check_launches(got, expected_train_launches(cfg, steps, 2, True, optimizer_leaves(cfg)),
+                   f"train staged {arch}")
     return got
 
 
@@ -1230,7 +1316,8 @@ def run_train_full_phase(torch, arch: str, stats: dict | None = None) -> dict:
           "peak_memory_bytes": peak, "launches": got})
     if not all(math.isfinite(x["loss"]) and x["grad_norm"] > 0 for x in steps):
         raise AssertionError(f"train full {arch}: a non-finite loss or a zero grad norm")
-    check_launches(got, expected_train_launches(cfg, TRAIN_STEPS, 0, True),
+    check_launches(got, expected_train_launches(cfg, TRAIN_STEPS, 0, True,
+                                                optimizer_leaves(cfg)),
                    f"train full {arch}")
     del state
     return got
@@ -1397,7 +1484,7 @@ def _mesh_train(torch, mesh) -> dict:
         if got[name] != ref_launches[name] or not got[name]:
             raise AssertionError(f"mesh train: {name} launched {got[name]} times, "
                                  f"{ref_launches[name]} on one device")
-    check_launches(got, expected_train_launches(cfg, MESH_TRAIN_STEPS, 0, True),
+    check_launches(got, expected_train_launches(cfg, MESH_TRAIN_STEPS, 0, True, 0),
                    f"mesh train {PHI}")
     del state
     return got
@@ -1481,7 +1568,7 @@ def run_elastic_phase(torch) -> dict:
                              f"between two runs (> {ELASTIC_REPEAT_TOL})")
     # per run: 6 steps, then step 7 twice (restored, live clone); no evaluations
     check_launches(got, {k: 2 * v for k, v in expected_train_launches(
-        cfg, ELASTIC_STEPS + 2, 0, True).items()}, f"elastic {WH}")
+        cfg, ELASTIC_STEPS + 2, 0, True, optimizer_leaves(cfg)).items()}, f"elastic {WH}")
     return got
 
 
@@ -1520,7 +1607,8 @@ def run_elastic_f32_phase(torch) -> dict:
     if not gaps["max_rel_gap"] <= ELASTIC_F32_TOL:
         raise AssertionError(f"elastic f32 {WH}: card and CPU losses differ by "
                              f"{gaps['rel_gap_by_step']} (> {ELASTIC_F32_TOL})")
-    check_launches(got, expected_train_launches(cfg, ELASTIC_STEPS + 2, 0, False),
+    check_launches(got, expected_train_launches(cfg, ELASTIC_STEPS + 2, 0, False,
+                                                optimizer_leaves(cfg)),
                    f"elastic f32 {WH}")
     return got
 
@@ -1682,6 +1770,10 @@ SOURCES = {
                         "src/repro/kernels/ssd_scan.py:68", ZAMBA),
     "ssd_intra_chunk_bwd": ("cuda", "src/repro_torch/csrc/ssd_intra_chunk_bwd.cu",
                             "src/repro/kernels/ssd_scan.py:68", ZAMBA),
+    "adamw": ("triton", "src/repro_torch/kernels/adamw.py",
+              "src/repro/optim/adamw.py:51 (plain JAX, no TPU kernel)", PHI),
+    "grad_sumsq": ("triton", "src/repro_torch/kernels/adamw.py",
+                   "src/repro/optim/adamw.py:45 (plain JAX, no TPU kernel)", PHI),
 }
 TIMES = ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
          "library_device_ms")

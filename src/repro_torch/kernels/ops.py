@@ -21,6 +21,10 @@ DTensors (the sharded steps of ``runtime/parallel.py``) go to
 ``kernels/sharded.py``, which runs these same entry points on each rank's
 local shards through ``local_map`` where the placements make that exact,
 and raises on any other placement.
+
+The optimizer's ``adamw`` (one leaf's fused update) and ``grad_sumsq`` (the
+clip's sum of squares, one launch a leaf) send DTensors, as CPU tensors, to
+their plain versions: the norm is then the whole tensor's on every rank.
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ from typing import Optional
 import torch
 from torch.distributed.tensor import DTensor
 
+from .adamw import adamw_plain, adamw_triton, grad_sumsq_plain, grad_sumsq_triton
 from .decode_attention import decode_attention_cuda, decode_attention_plain
 from .flash_attention import (
     flash_attention_bwd_cuda,
@@ -41,7 +46,7 @@ from . import sharded
 from .ssd_scan import ssd_intra_chunk_bwd_cuda, ssd_intra_chunk_cuda, ssd_intra_chunk_plain
 
 KERNELS = ("rmsnorm", "flash_attention", "decode_attention", "ssd_intra_chunk",
-           "rmsnorm_bwd", "flash_attention_bwd", "ssd_intra_chunk_bwd")
+           "rmsnorm_bwd", "flash_attention_bwd", "ssd_intra_chunk_bwd", "adamw", "grad_sumsq")
 LAUNCHES: dict[str, int] = dict.fromkeys(KERNELS, 0)
 
 
@@ -179,3 +184,29 @@ def ssd_intra_chunk(la: torch.Tensor, C: torch.Tensor, B_in: torch.Tensor, x: to
     out = ssd_intra_chunk_cuda(la, C, B_in, x)
     LAUNCHES["ssd_intra_chunk"] += 1
     return out
+
+
+def adamw(g: torch.Tensor, m: torch.Tensor, v: torch.Tensor, mw: torch.Tensor,
+          p: torch.Tensor, hyper: torch.Tensor, *, b1: float, b2: float, eps: float,
+          weight_decay: float) -> None:
+    """One AdamW step of one leaf in place: float32 m, v and master weights
+    ``mw``, and the param ``p`` cast from the new ``mw``. ``hyper``: float32
+    (4,) on the leaf's device, (clip scale, lr, bias correction 1, bias
+    correction 2)."""
+    kw = dict(b1=b1, b2=b2, eps=eps, weight_decay=weight_decay)
+    if isinstance(m, DTensor) or not _on_cuda(m, "adamw"):
+        adamw_plain(g, m, v, mw, hyper, **kw)
+        p.copy_(mw)
+        return
+    adamw_triton(g, m, v, mw, p, hyper, **kw)
+    LAUNCHES["adamw"] += 1
+
+
+def grad_sumsq(grads: list) -> torch.Tensor:
+    """The float32 sum over the leaves ``grads`` of sum(g^2), 0-dim, on
+    their device."""
+    if any(isinstance(g, DTensor) for g in grads) or not _on_cuda(grads[0], "grad_sumsq"):
+        return grad_sumsq_plain(grads)
+    total = grad_sumsq_triton(grads)
+    LAUNCHES["grad_sumsq"] += len(grads)
+    return total

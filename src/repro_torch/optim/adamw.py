@@ -9,12 +9,15 @@ the same dicts and a new step. It works one leaf at a time, so its
 temporaries are the size of the largest leaf; ``torch._foreach_*`` ops would
 hold one temporary per leaf at once (~8 GB each at that width).
 
-On DTensors (the mesh steps of ``runtime/parallel.py``) the norm is the
-whole tensor's on every rank (a rank clipping by its own shard's norm would
-drift from the others without an error), and under ZeRO-1 (m, v and the
-master weights also sharded over "data") each grad is cut to the state's
-layout before the update and the new master weights are gathered to the
-param's layout before they are copied into it.
+Each leaf goes through ``kernels.ops``: on the card one fused update
+(``adamw``) and one sum-of-squares launch for the clip (``grad_sumsq``), the
+clip scale, lr and bias corrections handed over in a float32 (4,) tensor on
+the device, so nothing is read back to the host; CPU tensors and DTensors
+(the mesh steps of ``runtime/parallel.py``) run the plain versions, this
+loop's arithmetic, the norm then the whole tensor's on every rank. Under
+ZeRO-1 (m, v and the master weights also sharded over "data") each grad is
+cut to the state's layout before the update, and copying the new master
+weights into the param gathers them to the param's layout.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ from typing import Any, NamedTuple
 import torch
 from torch.distributed.tensor import DTensor
 
+from ..kernels import ops
 from ..models.common import tree_map
 from ..spans import span
 
@@ -64,15 +68,15 @@ def init(params) -> OptState:
 
 def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum over leaves of sum(g^2), in float32."""
-    total = None
-    for g in leaves(tree):
-        if isinstance(g, DTensor):
-            sq = g.detach().float().square().sum().full_tensor()
-        else:
-            gf = g.detach().reshape(-1).float()
-            sq = torch.dot(gf, gf)
-        total = sq if total is None else total + sq
-    return torch.sqrt(total)
+    return torch.sqrt(ops.grad_sumsq([g.detach().contiguous() for g in leaves(tree)]))
+
+
+def _f32(x, device) -> torch.Tensor:
+    """``x`` as a float32 scalar tensor on ``device``, made there (a Python
+    number copied from the host would synchronise)."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=torch.float32)
+    return torch.full((), x, dtype=torch.float32, device=device)
 
 
 def _to(t, like):
@@ -88,23 +92,18 @@ def update(grads, state: OptState, params, cfg: AdamWConfig, lr_scale=1.0):
     """Returns (new_params, new_state, stats). ``lr_scale`` multiplies cfg.lr
     (schedules pass the factor)."""
     step = state.step + 1
+    grads = [g.contiguous() for g in leaves(grads)]
     with span("optim.clip"):
-        gnorm = global_norm(grads)
+        gnorm = torch.sqrt(ops.grad_sumsq(grads))
         scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
-    b1, b2 = cfg.b1, cfg.b2
     stepf = step.to(torch.float32)
-    bc1 = 1.0 - torch.pow(torch.tensor(b1, dtype=torch.float32, device=stepf.device), stepf)
-    bc2 = 1.0 - torch.pow(torch.tensor(b2, dtype=torch.float32, device=stepf.device), stepf)
-    lr = cfg.lr * torch.as_tensor(lr_scale, dtype=torch.float32, device=stepf.device)
-
-    for g, m, v, mw, p in zip(leaves(grads), leaves(state.m), leaves(state.v),
-                              leaves(state.master), leaves(params)):
-        g = _to(g, m).float() * scale
-        m.mul_(b1).add_((1 - b1) * g)
-        v.mul_(b2).add_(((1 - b2) * g).mul_(g))
-        # lr * (mhat / (sqrt(vhat) + eps) + wd * mw), temporaries reused
-        upd = (m / bc1).div_(torch.sqrt(v / bc2).add_(cfg.eps)).add_(cfg.weight_decay * mw)
-        mw.sub_(upd.mul_(lr))
-        p.copy_(_to(mw, p))                  # cast back to the param's dtype
+    bc1 = 1.0 - torch.pow(_f32(cfg.b1, stepf.device), stepf)
+    bc2 = 1.0 - torch.pow(_f32(cfg.b2, stepf.device), stepf)
+    lr = cfg.lr * _f32(lr_scale, stepf.device)
+    hyper = torch.stack((scale, lr, bc1, bc2))
+    kw = dict(b1=cfg.b1, b2=cfg.b2, eps=cfg.eps, weight_decay=cfg.weight_decay)
+    for g, m, v, mw, p in zip(grads, leaves(state.m), leaves(state.v), leaves(state.master),
+                              leaves(params)):
+        ops.adamw(_to(g, m), m, v, mw, p, hyper, **kw)
     return params, OptState(step, state.master, state.m, state.v), {
         "grad_norm": gnorm, "lr": lr}

@@ -24,7 +24,11 @@ serving and training on the card against the CPU; the decode kernel's lse
 output at the qwen3-14b and gemma3 global decode shapes and kv_len 0; the
 elastic restart (mirrored checkpoints, a storage node lost, the restore bit
 for bit) on the smoke phi4-mini and whisper; the program's spans holding the
-launches made inside them on the profiler's clock. Every test here
+launches made inside them on the profiler's clock; the fused AdamW
+(``kernels/adamw.py``) against its plain version bit for bit and through
+``optim.update`` against the plain loop over several steps, one launch of
+each kernel a leaf, no host sync, and the clip's norm repeating bit for bit.
+Every test here
 carries the ``cuda`` marker and skips without a card. The file imports no JAX,
 so it runs where only PyTorch is installed:
 
@@ -874,3 +878,104 @@ def test_launches_land_inside_their_spans_on_the_profilers_clock(cuda_card):
         assert len(inside) == 1, (k.name(), inside)
         held[inside[0]] += 1
     assert held["a"] == held["b"] == len(kernels) // 2
+
+
+# -- the fused AdamW (kernels/adamw.py) ------------------------------------------
+# leaf sizes with tails that fill no block of either kernel (2048 and 4096
+# elements), one above a whole sweep of the sum of squares' programs
+ADAMW_SHAPES = {"a": (5,), "b": (3, 700), "c": (129, 1000), "d": (2200, 1031)}
+ADAMW_DT = pytest.mark.parametrize("gdt,pdt", [(g, p) for g in ("bfloat16", "float32")
+                                               for p in ("bfloat16", "float32")])
+
+
+def _adamw_tree(dev, dtype, seed, scale=1.0):
+    return {k: (scale * t).to(dtype) for k, t in
+            zip(ADAMW_SHAPES, _card_inputs(dev, ADAMW_SHAPES.values(), torch.float32, seed))}
+
+
+@ADAMW_DT
+def test_adamw_kernel_matches_plain_bits_on_card(cuda_card, gdt, pdt):
+    """One fused update of each leaf against the plain version on the same
+    inputs and hyperparameters: m, v, the master weights and the param
+    equal bit for bit (the same float32 operations in the same order)."""
+    from repro_torch.kernels.adamw import adamw_plain, adamw_triton
+    kw = dict(b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1)
+    hyper = torch.tensor([0.37, 3e-4, 0.271, 0.0975], device=cuda_card)
+    for k, shape in ADAMW_SHAPES.items():
+        g, m, v, w = _card_inputs(cuda_card, [shape] * 4, torch.float32, 21)
+        g, v = g.to(DTYPES[gdt]), v.abs() * 1e-3
+        got = [t.clone() for t in (m, v, w)] + [torch.empty(shape, dtype=DTYPES[pdt],
+                                                             device=cuda_card)]
+        adamw_triton(g, *got, hyper, **kw)
+        adamw_plain(g, m, v, w, hyper, **kw)
+        for name, a, b in zip("mvwp", got, (m, v, w, w.to(DTYPES[pdt]))):
+            assert torch.equal(a, b), (k, name, (a.float() - b.float()).abs().max())
+
+
+@ADAMW_DT
+@pytest.mark.parametrize("clip", [0.05, 1e3], ids=["clip_active", "clip_inactive"])
+def test_fused_update_matches_the_plain_loop_on_card(cuda_card, monkeypatch, gdt, pdt, clip):
+    """Four steps of ``optim.update`` on the kernels against the plain loop
+    on the card (``kernels.ops`` sent down its CPU route), from one state and
+    on the same grads: m, v and the master weights within 1e-5 of each leaf's
+    max (the clip's norm is summed in another order, so the clip scale may
+    differ in its last bits), each param within one ulp of its dtype; one
+    ``adamw`` and one ``grad_sumsq`` launch a leaf a step."""
+    from repro_torch import optim
+    cfg = optim.AdamWConfig(lr=1e-2, grad_clip=clip)
+    steps, sides = 4, []
+    for fused in (True, False):
+        if not fused:
+            monkeypatch.setattr(ops, "_on_cuda", lambda t, what: False)
+        params = _adamw_tree(cuda_card, DTYPES[pdt], 30)
+        st = optim.init(params)
+        ops.reset_launches()
+        for i in range(steps):
+            grads = _adamw_tree(cuda_card, DTYPES[gdt], 40 + i, scale=0.3)
+            params, st, stats = optim.update(grads, st, params, cfg, lr_scale=0.5 + 0.25 * i)
+        sides.append((params, st, float(stats["grad_norm"]), dict(ops.LAUNCHES)))
+    (p1, s1, n1, l1), (p0, s0, n0, l0) = sides
+    assert l1["adamw"] == l1["grad_sumsq"] == steps * len(ADAMW_SHAPES)
+    assert l0["adamw"] == l0["grad_sumsq"] == 0
+    assert n1 == pytest.approx(n0, rel=1e-6)
+    for k in ADAMW_SHAPES:
+        for name, a, b in (("m", s1.m, s0.m), ("v", s1.v, s0.v), ("master", s1.master, s0.master)):
+            assert _rel_err(a[k], b[k]) < 1e-5, (k, name)
+        ulp = torch.finfo(DTYPES[pdt]).eps * p0[k].float().abs()
+        assert ((p1[k].float() - p0[k].float()).abs() <= ulp).all(), k
+
+
+def test_fused_update_runs_without_host_sync(cuda_card):
+    """A warmed-up ``optim.update`` on the card under
+    ``torch.cuda.set_sync_debug_mode("error")``: the norm, the clip scale,
+    lr and the bias corrections stay on the device."""
+    from repro_torch import optim
+    params = _adamw_tree(cuda_card, torch.bfloat16, 50)
+    st = optim.init(params)
+    cfg = optim.AdamWConfig()
+    grads = _adamw_tree(cuda_card, torch.bfloat16, 51)
+    params, st, _ = optim.update(grads, st, params, cfg)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        params, st, stats = optim.update(grads, st, params, cfg,
+                                         lr_scale=optim.constant(st.step.float()))
+        params, st, stats = optim.update(grads, st, params, cfg)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert ops.LAUNCHES["adamw"] == ops.LAUNCHES["grad_sumsq"] == 2 * len(ADAMW_SHAPES)
+    assert torch.isfinite(stats["grad_norm"]) and int(st.step) == 3
+
+
+@pytest.mark.parametrize("gdt", ["bfloat16", "float32"])
+def test_grad_norm_repeats_bit_for_bit_on_card(cuda_card, gdt):
+    """``global_norm`` on the kernel gives the same bits in two calls, and
+    the float64 norm within 1e-6."""
+    from repro_torch import optim
+    grads = _adamw_tree(cuda_card, DTYPES[gdt], 60)
+    a, b = optim.global_norm(grads), optim.global_norm(grads)
+    assert a.dtype == torch.float32 and a.shape == ()
+    assert torch.equal(a, b)
+    want = torch.sqrt(sum(t.double().square().sum() for t in grads.values()))
+    assert float(a) == pytest.approx(float(want), rel=1e-6)

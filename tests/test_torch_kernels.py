@@ -177,7 +177,7 @@ def test_ops_dispatch_cpu_to_plain_without_counting(monkeypatch):
         monkeypatch.setattr(tops, name, wrapped)
 
     for name in ("rmsnorm_plain", "flash_attention_plain", "decode_attention_plain",
-                 "ssd_intra_chunk_plain"):
+                 "ssd_intra_chunk_plain", "adamw_plain", "grad_sumsq_plain"):
         recording(name)
     tops.reset_launches()
     rng = np.random.default_rng(4)
@@ -197,13 +197,21 @@ def test_ops_dispatch_cpu_to_plain_without_counting(monkeypatch):
     xs = torch.from_numpy(rng.standard_normal((1, 2, 32, 4, 16)).astype(np.float32))
     assert len(tops.ssd_intra_chunk(la, C, Bm, xs)) == 3
     assert tops.ssd_intra_chunk(la, C, Bm, xs.requires_grad_())[0].requires_grad
+    g, m, v, w = (torch.from_numpy(rng.standard_normal(37).astype(np.float32)) for _ in range(4))
+    p = w.to(torch.bfloat16)
+    tops.adamw(g, m, v.abs_(), w, p, torch.tensor([1.0, 1e-2, 0.1, 0.05]),
+               b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1)
+    assert torch.equal(p, w.to(torch.bfloat16))
+    assert tops.grad_sumsq([g, x]).shape == ()
     assert calls == ["rmsnorm_plain", "rmsnorm_plain", "flash_attention_plain",
                      "flash_attention_plain", "decode_attention_plain",
-                     "ssd_intra_chunk_plain", "ssd_intra_chunk_plain"]
+                     "ssd_intra_chunk_plain", "ssd_intra_chunk_plain", "adamw_plain",
+                     "grad_sumsq_plain"]
     assert tops.LAUNCHES == dict.fromkeys(tops.KERNELS, 0)
     assert set(tops.KERNELS) == {"rmsnorm", "rmsnorm_bwd", "flash_attention",
                                  "flash_attention_bwd", "decode_attention",
-                                 "ssd_intra_chunk", "ssd_intra_chunk_bwd"}
+                                 "ssd_intra_chunk", "ssd_intra_chunk_bwd", "adamw",
+                                 "grad_sumsq"}
 
 
 def test_ops_refuse_other_devices():
@@ -214,6 +222,7 @@ def test_ops_refuse_other_devices():
 
 def test_cuda_wrappers_refuse_cpu_tensors():
     """The kernel launchers never take a CPU tensor (no silent plain path)."""
+    from repro_torch.kernels.adamw import adamw_triton, grad_sumsq_triton
     from repro_torch.kernels.decode_attention import decode_attention_cuda
     from repro_torch.kernels.flash_attention import flash_attention_cuda
     from repro_torch.kernels.rmsnorm import rmsnorm_bwd_triton, rmsnorm_triton
@@ -231,6 +240,10 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         decode_attention_cuda(x[:, :1], x, x, kv_len=torch.tensor(1, dtype=torch.int32))
     with pytest.raises(ValueError, match="CUDA tensors"):
         ssd_intra_chunk_cuda(x, x, x, x[..., None])
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        adamw_triton(x, x, x, x, x, torch.ones(4), b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        grad_sumsq_triton([x])
 
 
 @pytest.mark.parametrize("shape,match", [

@@ -84,6 +84,69 @@ def test_adamw_update_matches_repro_leaf_for_leaf(clip, pdtype):
         _assert_tree_close(tp, jp, rtol=1e-6 if pdtype == "float32" else 8e-3)
 
 
+def _route_calls(monkeypatch, cuda: bool):
+    """Record the plain versions that ``kernels.ops`` runs; with ``cuda``, the
+    ops take CPU tensors for the card's (``_on_cuda`` True) and the Triton
+    launchers are stood in for by the plain versions, so the kernel route's
+    dispatch and counts run on the CPU."""
+    from repro_torch.kernels import ops
+    calls = []
+    for name in ("adamw_plain", "grad_sumsq_plain"):
+        def wrapped(*args, _plain=getattr(ops, name), _name=name, **kw):
+            calls.append(_name)
+            return _plain(*args, **kw)
+        monkeypatch.setattr(ops, name, wrapped)
+    if cuda:
+        def adamw_stand_in(g, m, v, mw, p, hyper, **kw):
+            assert hyper.shape == (4,) and hyper.dtype == torch.float32
+            ops.adamw_plain(g, m, v, mw, hyper, **kw)
+            p.copy_(mw)
+        monkeypatch.setattr(ops, "_on_cuda", lambda t, what: True)
+        monkeypatch.setattr(ops, "adamw_triton", adamw_stand_in)
+        monkeypatch.setattr(ops, "grad_sumsq_triton", lambda gs: ops.grad_sumsq_plain(gs))
+    ops.reset_launches()
+    return ops, calls
+
+
+@pytest.mark.parametrize("pdtype", [torch.float32, torch.bfloat16])
+def test_cpu_update_takes_the_plain_path_without_launches(monkeypatch, pdtype):
+    """CPU leaves run the plain versions, one update and one sum of squares
+    a leaf, and count no launch."""
+    ops, calls = _route_calls(monkeypatch, cuda=False)
+    tp = _t(_tree(0), pdtype)
+    st = optim.init(tp)
+    for i in range(2):
+        tp, st, _ = optim.update(_t(_tree(10 + i)), st, tp, optim.AdamWConfig())
+    assert calls == (["grad_sumsq_plain"] + ["adamw_plain"] * 3) * 2
+    assert ops.LAUNCHES["adamw"] == ops.LAUNCHES["grad_sumsq"] == 0
+
+
+@pytest.mark.parametrize("clip", [0.05, 1e3], ids=["clip_active", "clip_inactive"])
+def test_kernel_route_counts_a_launch_a_leaf_and_keeps_the_plain_bits(monkeypatch, clip):
+    """Through the card's route (its launchers stood in for by the plain
+    versions): one ``adamw`` and one ``grad_sumsq`` launch a leaf a step, a
+    float32 (4,) ``hyper``, and the plain route's state bit for bit."""
+    cfg = optim.AdamWConfig(lr=1e-2, grad_clip=clip)
+    runs = []
+    for cuda in (False, True):
+        ops, _ = _route_calls(monkeypatch, cuda)
+        tp = _t(_tree(0), torch.bfloat16)
+        st = optim.init(tp)
+        for i in range(3):
+            tp, st, stats = optim.update(_t(_tree(10 + i), torch.bfloat16), st, tp, cfg,
+                                         lr_scale=0.5 + 0.25 * i)
+        runs.append((_flat(tp), _flat(st.master), _flat(st.m), _flat(st.v),
+                     float(stats["grad_norm"]), dict(ops.LAUNCHES)))
+        monkeypatch.undo()
+    (*plain, plain_launches), (*card, card_launches) = runs
+    assert plain_launches["adamw"] == plain_launches["grad_sumsq"] == 0
+    assert card_launches["adamw"] == card_launches["grad_sumsq"] == 3 * 3
+    for a, b in zip(plain[:4], card[:4]):
+        for k in a:
+            np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+    assert plain[4] == card[4]
+
+
 def test_adamw_first_step_matches_closed_form():
     cfg = optim.AdamWConfig(lr=0.1, weight_decay=0.0, grad_clip=1e9)
     p = {"w": torch.ones(2)}

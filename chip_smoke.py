@@ -22,7 +22,10 @@ Phases, each printing one JSON line to stdout:
              m, v, master and param) and the clip's sum of squares
              (``grad_sumsq``, float64 within 1e-6) at phi4-mini's tied embedding,
              a stacked layer leaf and ragged tails, gradient and param in bf16
-             and in float32. Kernel, plain and one-PyTorch-call (``library_ms``, a
+             and in float32; Zamba2-7B's training shapes (B 2 x S 4096): the
+             flash forward and backward at hd 224 with its (hd/2)^-1/2 scale,
+             and both SSD kernels with C and B in 2 groups of 56 heads.
+             Kernel, plain and one-PyTorch-call (``library_ms``, a
              yardstick the port never calls; autograd through it for a
              backward) times, inputs and outputs rotated over copies so
              that no call finds the last one's data in L2
@@ -179,6 +182,9 @@ GEM_TRAIN_LOCAL = GEM + " train local"     # gemma3's local layers' training sha
 WH_TRAIN_ENC, WH_TRAIN_CROSS = WH + " train encoder", WH + " train cross"
 XL_TRAIN, XL_TRAIN_INNER = XL + " train", XL + " train d_inner"
 PHI_LEAF = PHI + " layer leaf"             # AdamW's stacked leaf of 8 layers' MLP weights
+# Zamba2-7B (zamba2-7b-instruct) training: B 2 x S 4096, its shared
+# attention's scale (hd/2)^-1/2, its SSD's 2 groups of 56 heads
+Z7, Z7_B, Z7_S, Z7_SCALE = "zamba2-7b-instruct", 2, 4096, (224 / 2) ** -0.5
 ADAMW_KW = dict(b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1)
 
 
@@ -348,15 +354,16 @@ def kernel_cases(torch):
 
     def flash_fwd(a):
         out = flash_attention_cuda(a["q"], a["k"], a["v"], causal=a["causal"],
-                                   window=a["window"], return_lse=a["lse"])
+                                   window=a["window"], return_lse=a["lse"],
+                                   softmax_scale=a["scale"])
         return out[0] if a["lse"] else out
 
-    def flash_make(Bq, S, T, H, K, hd, window, lse, causal):
+    def flash_make(Bq, S, T, H, K, hd, window, lse, causal, scale=None):
         def make(dtype):
             g = torch.Generator(device=dev).manual_seed(0)
             a = {"q": randn(g, (Bq, S, H, hd), dtype), "k": randn(g, (Bq, T, K, hd), dtype),
                  "v": randn(g, (Bq, T, K, hd), dtype), "window": window, "lse": lse,
-                 "causal": causal}
+                 "causal": causal, "scale": scale}
             # library yardstick: SDPA on (B, H, S, hd) with kv heads expanded
             a["lq"] = a["q"].transpose(1, 2)
             a["lk"] = a["k"].repeat_interleave(H // K, dim=2).transpose(1, 2)
@@ -400,20 +407,25 @@ def kernel_cases(torch):
         (TRAIN_B, WH_FRAMES, WH_FRAMES, 6, 6, 64, None, False, True, WH_TRAIN_ENC),
         (TRAIN_B, 448, WH_FRAMES, 6, 6, 64, None, False, True, WH_TRAIN_CROSS),
         (2, 129, 257, 6, 3, 64, None, False, True, None)]
-    for Bq, S, T, H, K, hd, window, causal, lse, main in flash_fwd_cases:
+    # Zamba2-7B's shared attention in training (hd 224, MHA, B 2 x S 4096)
+    # with its scale (224/2)^-1/2 passed in, and a ragged GQA edge
+    flash_fwd_cases += [(Z7_B, Z7_S, Z7_S, 32, 32, 224, None, True, True, Z7, Z7_SCALE),
+                        (2, 129, 129, 5, 1, 224, None, True, True, None, Z7_SCALE)]
+    for Bq, S, T, H, K, hd, window, causal, lse, main, *scale in flash_fwd_cases:
+        scale = scale[0] if scale else None
         # valid (row, col) pairs
         pairs = sum(min(r + 1, window or r + 1) for r in range(S)) if causal else S * T
         cases.append(dict(
             kernel="flash_attention", desc={"B": Bq, "S": S, "T": T, "H": H, "K": K,
                                             "hd": hd, "causal": causal, "window": window,
-                                            "lse": lse},
-            make=flash_make(Bq, S, T, H, K, hd, window, lse, causal),
+                                            "lse": lse, **({"scale": scale} if scale else {})},
+            make=flash_make(Bq, S, T, H, K, hd, window, lse, causal, scale),
             run=lambda a: flash_fwd(a),
             plain=lambda a: flash_attention_plain(a["q"], a["k"], a["v"], causal=a["causal"],
-                                                  window=a["window"]),
+                                                  window=a["window"], softmax_scale=a["scale"]),
             library=lambda a: F.scaled_dot_product_attention(
                 a["lq"], a["lk"], a["lv"], attn_mask=a["mask"],
-                is_causal=a["mask"] is None and a["causal"]),
+                is_causal=a["mask"] is None and a["causal"], scale=a["scale"]),
             nbytes=lambda isz, Bq=Bq, S=S, T=T, H=H, K=K, hd=hd, lse=lse: (
                 2 * Bq * S * H * hd + 2 * Bq * T * K * hd) * isz + 4 * Bq * H * S * lse,
             flops=4 * Bq * H * hd * pairs, main=main))
@@ -421,16 +433,18 @@ def kernel_cases(torch):
     # backward kernels: the phi4-mini-3.8b training shapes, then a window, a
     # ragged S, hd 112 (zamba2's shared block, MHA), hd 64 with G = 4, and a
     # second 128-key tile holding one key under a window shorter than a tile
-    def flash_bwd_make(Bq, S, T, H, K, hd, window, causal):
+    def flash_bwd_make(Bq, S, T, H, K, hd, window, causal, scale=None):
         def make(dtype):
             g = torch.Generator(device=dev).manual_seed(4)
             a = {"q": randn(g, (Bq, S, H, hd), dtype), "k": randn(g, (Bq, T, K, hd), dtype),
                  "v": randn(g, (Bq, T, K, hd), dtype), "do": randn(g, (Bq, S, H, hd), dtype),
-                 "window": window, "causal": causal}
+                 "window": window, "causal": causal, "scale": scale}
             # o and lse from the forward kernel (uncounted), its lse checked
             a["o"], a["lse"] = flash_attention_cuda(a["q"], a["k"], a["v"], causal=causal,
-                                                    window=window, return_lse=True)
-            want = flash_attention_lse_plain(a["q"], a["k"], causal=causal, window=window)
+                                                    window=window, return_lse=True,
+                                                    softmax_scale=scale)
+            want = flash_attention_lse_plain(a["q"], a["k"], causal=causal, window=window,
+                                             softmax_scale=scale)
             a["lse_err"] = float((a["lse"] - want).abs().max() / want.abs().max())
             # library yardstick: autograd through SDPA (GQA), its forward done here
             a["lq"], a["lk"], a["lv"] = (t.transpose(1, 2).detach().requires_grad_()
@@ -440,7 +454,7 @@ def kernel_cases(torch):
             mask = None if window is None else (cols <= rows) & (cols > rows - window)
             a["lout"] = F.scaled_dot_product_attention(
                 a["lq"], a["lk"], a["lv"], attn_mask=mask, is_causal=mask is None and causal,
-                enable_gqa=True)
+                enable_gqa=True, scale=scale)
             a["ldo"] = a["do"].transpose(1, 2)
             return a
         return make
@@ -469,19 +483,24 @@ def kernel_cases(torch):
         (TRAIN_B, 448, WH_FRAMES, 6, 6, 64, None, False, WH_TRAIN_CROSS),
         (TRAIN_B, 448, 448, 6, 6, 64, None, True, WH),
         (2, 129, 257, 6, 3, 64, None, False, None), (2, 300, 65, 4, 2, 64, None, False, None)]
-    for Bq, S, T, H, K, hd, window, causal, main in flash_bwd_cases:
+    # Zamba2-7B's shared attention in training, its scale passed in
+    flash_bwd_cases += [(Z7_B, Z7_S, Z7_S, 32, 32, 224, None, True, Z7, Z7_SCALE),
+                        (2, 130, 130, 5, 1, 224, 64, True, None, Z7_SCALE)]
+    for Bq, S, T, H, K, hd, window, causal, main, *scale in flash_bwd_cases:
+        scale = scale[0] if scale else None
         pairs = sum(min(r + 1, window or r + 1) for r in range(S)) if causal else S * T
         cases.append(dict(
             kernel="flash_attention_bwd",
             desc={"B": Bq, "S": S, "T": T, "H": H, "K": K, "hd": hd, "causal": causal,
-                  "window": window},
-            make=flash_bwd_make(Bq, S, T, H, K, hd, window, causal), grads=True,
+                  "window": window, **({"scale": scale} if scale else {})},
+            make=flash_bwd_make(Bq, S, T, H, K, hd, window, causal, scale), grads=True,
             run=lambda a: flash_attention_bwd_cuda(a["q"], a["k"], a["v"], a["o"], a["lse"],
                                                    a["do"], causal=a["causal"],
-                                                   window=a["window"]),
+                                                   window=a["window"], softmax_scale=a["scale"]),
             plain=lambda a: flash_attention_bwd_plain(a["q"], a["k"], a["v"], a["o"], a["lse"],
                                                       a["do"], causal=a["causal"],
-                                                      window=a["window"]),
+                                                      window=a["window"],
+                                                      softmax_scale=a["scale"]),
             library=lambda a: torch.autograd.grad(a["lout"], (a["lq"], a["lk"], a["lv"]),
                                                   a["ldo"], retain_graph=True),
             # q, o, dO and dq (H heads), k, v, dk and dv (K heads); lse
@@ -583,7 +602,7 @@ def kernel_cases(torch):
     # relative in exp(L_t - L_s); that case, and la = N(0,1) * 0.05 (la > 0
     # in places, exp(L_t - L_s) > 1), are held to the plain version run in
     # float64.
-    for (Bs, nc, Q, H, N, P), la_kind, main in [
+    for (Bs, nc, Q, H, N, P, *groups), la_kind, main in [
             ((2, 4, 32, 8, 16, 16), "small", None), ((1, 2, 64, 4, 64, 64), "small", None),
             ((1, 1, 128, 2, 32, 64), "small", None),
             # edges: one mma tile; Q, N and P off the mma tile
@@ -591,19 +610,24 @@ def kernel_cases(torch):
             # la > 0 in places; P 128 at Q 128, where the kernel runs one slot
             ((1, 2, 40, 3, 4, 12), "mixed", None), ((1, 1, 128, 2, 64, 128), "small", None),
             ((B, PROMPT // 128, 128, 112, 64, 64), "small", ZAMBA),
-            ((B, PROMPT // 128, 128, 112, 64, 64), "model", None)]:
-        def make(dtype, shape=(Bs, nc, Q, H, N, P), la_kind=la_kind):
+            ((B, PROMPT // 128, 128, 112, 64, 64), "model", None),
+            # Zamba2-7B's training shape, C and B in 2 groups of 56 heads
+            ((Z7_B, Z7_S // 128, 128, 112, 64, 64, 2), "model", Z7)]:
+        G = groups[0] if groups else 1
+
+        def make(dtype, shape=(Bs, nc, Q, H, N, P), la_kind=la_kind, G=G):
             Bs, nc, Q, H, N, P = shape
+            cb = (Bs, nc, Q, N) if G == 1 else (Bs, nc, Q, G, N)
             g = torch.Generator(device=dev).manual_seed(2)
             z = torch.randn((Bs, nc, Q, H), generator=g, device=dev)
             la = {"small": -z.abs() * 0.1, "model": -F.softplus(z), "mixed": z * 0.05}[la_kind]
-            return {"la": la, "C": randn(g, (Bs, nc, Q, N), dtype),
-                    "B": randn(g, (Bs, nc, Q, N), dtype),
+            return {"la": la, "C": randn(g, cb, dtype), "B": randn(g, cb, dtype),
                     "x": randn(g, (Bs, nc, Q, H, P), dtype)}
         BC, tri = Bs * nc, Q * (Q + 1) // 2
         cases.append(dict(
             kernel="ssd_intra_chunk",
-            desc={"B": Bs, "nc": nc, "Q": Q, "H": H, "N": N, "P": P, "la": la_kind},
+            desc={"B": Bs, "nc": nc, "Q": Q, "H": H, "N": N, "P": P, "la": la_kind,
+                  **({"G": G} if G > 1 else {})},
             make=make, dtypes=("float32",), tols=SSD_TOLS,
             run=lambda a: ssd_intra_chunk_cuda(a["la"], a["C"], a["B"], a["x"]),
             plain=lambda a: ssd_intra_chunk_plain(a["la"], a["C"], a["B"], a["x"]),
@@ -611,13 +635,13 @@ def kernel_cases(torch):
             if la_kind != "small" else None,
             library=None,
             # la, C, B, x read once; y, state, tot written once
-            nbytes=lambda isz, BC=BC, Q=Q, H=H, N=N, P=P: isz * (
-                BC * Q * H + 2 * BC * Q * N + 2 * BC * Q * H * P + BC * H * P * N + BC * H),
+            nbytes=lambda isz, BC=BC, Q=Q, H=H, N=N, P=P, G=G: isz * (
+                BC * Q * H + 2 * BC * Q * G * N + 2 * BC * Q * H * P + BC * H * P * N + BC * H),
             # On the tensor cores in 3xTF32 (three TF32 products for each
-            # float32 one): C.B^T once per (b, chunk) on s <= t; per head
-            # M.x on s <= t and the state (w x)^T B. Outside them: per head M
-            # on s <= t (difference, exp, product), the end weights, w x.
-            flops={"tf32": 3 * (2 * BC * N * tri + BC * H * (2 * P * tri + 2 * Q * P * N)),
+            # float32 one): C.B^T once per (b, chunk, group) on s <= t; per
+            # head M.x on s <= t and the state (w x)^T B. Outside them: per
+            # head M on s <= t (difference, exp, product), the end weights, w x.
+            flops={"tf32": 3 * (2 * BC * G * N * tri + BC * H * (2 * P * tri + 2 * Q * P * N)),
                    "float32": BC * H * (3 * tri + 2 * Q + Q * P)},
             main=main))
 
@@ -625,20 +649,25 @@ def kernel_cases(torch):
     # 64 columns) and zamba2-7b's training shape (B 4, S 2048: 16 chunks),
     # held to the plain version in float64 (dla is a reverse cumsum of
     # differences, where float32 loses digits of its own)
-    for (Bs, nc, Q, H, N, P), la_kind, main in [
+    for (Bs, nc, Q, H, N, P, *groups), la_kind, main in [
             ((2, 4, 32, 8, 16, 16), "small", None), ((1, 2, 64, 4, 64, 64), "small", None),
             ((1, 1, 16, 1, 8, 8), "small", None), ((1, 2, 40, 3, 4, 12), "mixed", None),
             ((1, 1, 128, 2, 64, 128), "small", None),
             ((B, PROMPT // 128, 128, 112, 64, 64), "model", None),
             ((TRAIN_B, TRAIN_S // 128, 128, 112, 64, 64), "small", ZAMBA),
-            ((TRAIN_B, TRAIN_S // 128, 128, 112, 64, 64), "model", None)]:
-        def make(dtype, shape=(Bs, nc, Q, H, N, P), la_kind=la_kind):
+            ((TRAIN_B, TRAIN_S // 128, 128, 112, 64, 64), "model", None),
+            # Zamba2-7B's training shape, C and B in 2 groups of 56 heads
+            ((Z7_B, Z7_S // 128, 128, 112, 64, 64, 2), "model", Z7)]:
+        G = groups[0] if groups else 1
+
+        def make(dtype, shape=(Bs, nc, Q, H, N, P), la_kind=la_kind, G=G):
             Bs, nc, Q, H, N, P = shape
+            cb = (Bs, nc, Q, N) if G == 1 else (Bs, nc, Q, G, N)
             g = torch.Generator(device=dev).manual_seed(6)
             z = torch.randn((Bs, nc, Q, H), generator=g, device=dev)
             la = {"small": -z.abs() * 0.1, "model": -F.softplus(z), "mixed": z * 0.05}[la_kind]
             a = {"la": la}
-            for k, shp in (("C", (Bs, nc, Q, N)), ("B", (Bs, nc, Q, N)), ("x", (Bs, nc, Q, H, P)),
+            for k, shp in (("C", cb), ("B", cb), ("x", (Bs, nc, Q, H, P)),
                            ("dy", (Bs, nc, Q, H, P)), ("dst", (Bs, nc, H, P, N)),
                            ("dtot", (Bs, nc, H))):
                 a[k] = randn(g, shp, dtype)
@@ -647,19 +676,22 @@ def kernel_cases(torch):
         names = "la C B x dy dst dtot".split()
         cases.append(dict(
             kernel="ssd_intra_chunk_bwd",
-            desc={"B": Bs, "nc": nc, "Q": Q, "H": H, "N": N, "P": P, "la": la_kind},
+            desc={"B": Bs, "nc": nc, "Q": Q, "H": H, "N": N, "P": P, "la": la_kind,
+                  **({"G": G} if G > 1 else {})},
             make=make, dtypes=("float32",), grads=True,
             run=lambda a: ssd_intra_chunk_bwd_cuda(*(a[k] for k in names)),
             plain=lambda a: ssd_intra_chunk_bwd_plain(*(a[k] for k in names)),
             oracle=lambda a: ssd_intra_chunk_bwd_plain(*(a[k].double() for k in names)),
             library=None,
             # la, C, B, x, dy, dstate, dtot read once; dla, dC, dB, dx written
-            nbytes=lambda isz, BC=BC, Q=Q, H=H, N=N, P=P: isz * (
-                2 * BC * Q * H + 4 * BC * Q * N + 3 * BC * Q * H * P + BC * H * P * N + BC * H),
+            nbytes=lambda isz, BC=BC, Q=Q, H=H, N=N, P=P, G=G: isz * (
+                2 * BC * Q * H + 4 * BC * Q * G * N + 3 * BC * Q * H * P + BC * H * P * N
+                + BC * H),
             # products in 3xTF32 as the forward's: C.B^T on s <= t, dC and dB
-            # from dCB, per head dM = dy x^T and M^T dy on s <= t, B dstate^T
-            # and x dstate; outside them per head M, dCB, G on s <= t
-            flops={"tf32": 3 * (6 * BC * N * tri + BC * H * (4 * P * tri + 4 * Q * P * N)),
+            # from dCB (each a group's), per head dM = dy x^T and M^T dy on
+            # s <= t, B dstate^T and x dstate; outside them per head M, dCB, G
+            # on s <= t
+            flops={"tf32": 3 * (6 * BC * G * N * tri + BC * H * (4 * P * tri + 4 * Q * P * N)),
                    "float32": BC * H * (6 * tri + 4 * Q * N)},
             main=main))
 

@@ -11,7 +11,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Literal, Optional
 
-Family = Literal["dense", "moe", "hybrid", "ssm", "audio", "vlm"]
+Family = Literal["dense", "moe", "hybrid", "zamba2", "ssm", "audio", "vlm"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -31,6 +31,8 @@ class ModelConfig:
     global_rope_theta: Optional[float] = None   # gemma3 global layers
     qkv_bias: bool = False
     qk_norm: bool = False
+    attn_in: Optional[int] = None               # attention's input width (default d_model)
+    attn_scale_div: int = 1                     # softmax scale (hd / this)^-1/2 (zamba2: 2)
     sliding_window: Optional[int] = None        # window for local layers
     local_global_ratio: int = 0                 # gemma3: 5 (locals per global)
 
@@ -45,7 +47,13 @@ class ModelConfig:
     ssm_expand: int = 2
     ssm_conv_width: int = 4
     ssm_chunk: int = 128
-    shared_attn_every: int = 0                  # zamba2: shared attn block period
+    ssm_groups: int = 1                         # B/C groups (Mamba2's n_groups)
+    shared_attn_every: int = 0                  # hybrid: shared attn block period
+
+    # zamba2 (Zamba2-7B): shared blocks used in turn at the hybrid layers
+    n_shared_blocks: int = 1
+    hybrid_layer_ids: tuple = ()                # layers a shared block runs before
+    adapter_rank: int = 0                       # per-site LoRA adapter on the MLP's gate_up
 
     # xLSTM
     slstm_period: int = 0                       # 1 sLSTM per this many layers
@@ -65,6 +73,11 @@ class ModelConfig:
     def __post_init__(self) -> None:
         if self.n_heads % max(1, self.n_kv_heads):
             raise ValueError("n_heads must be a multiple of n_kv_heads")
+        if self.ssm_state and self.n_ssm_heads % self.ssm_groups:
+            raise ValueError("ssm_groups must divide the SSM heads")
+        object.__setattr__(self, "hybrid_layer_ids", tuple(self.hybrid_layer_ids))
+        if any(not 0 <= i < self.n_layers for i in self.hybrid_layer_ids):
+            raise ValueError("hybrid_layer_ids must lie in [0, n_layers)")
         if self.family == "moe" and (self.n_experts <= 0 or self.experts_per_token <= 0):
             raise ValueError("moe family needs n_experts/experts_per_token")
 
@@ -151,6 +164,12 @@ def shapes_for(arch_id: str) -> tuple[ShapeSpec, ...]:
     if arch_id in LONG_CONTEXT_ARCHS:
         out.append(LONG_500K)
     return tuple(out)
+
+
+def cut_depth(cfg: ModelConfig, n_layers: int) -> ModelConfig:
+    """``cfg``'s first ``n_layers`` layers, with the hybrid sites among them."""
+    return dataclasses.replace(cfg, n_layers=n_layers, hybrid_layer_ids=tuple(
+        i for i in cfg.hybrid_layer_ids if i < n_layers))
 
 
 def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:

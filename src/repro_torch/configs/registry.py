@@ -21,11 +21,17 @@ _MODULES = {
 
 ARCH_IDS = tuple(_MODULES)
 
+# configurations the port builds beyond ``repro``'s: found by ``get_config``
+# and ``get_smoke``, left out of ARCH_IDS (whose sweeps compare with ``repro``
+# and serve)
+_PORT_ONLY = {"zamba2-7b-instruct": "zamba2_7b_instruct"}
+
 
 def _module(arch_id: str):
-    if arch_id not in _MODULES:
-        raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(_MODULES)}")
-    return importlib.import_module(f".{_MODULES[arch_id]}", __package__)
+    mods = {**_MODULES, **_PORT_ONLY}
+    if arch_id not in mods:
+        raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(mods)}")
+    return importlib.import_module(f".{mods[arch_id]}", __package__)
 
 
 def get_config(arch_id: str) -> ModelConfig:

@@ -5,7 +5,8 @@
 // and m/l/acc carried in VMEM scratch between grid steps).
 //
 // Computes, for query head h reading kv head h / (H/K):
-//   s = (q . k) * hd^-0.5 in float32, s = -2e38 where masked
+//   s = (q . k) * scale in float32 (the caller's softmax scale: hd^-0.5, or
+//   Zamba2's (hd/2)^-0.5), s = -2e38 where masked
 //   (causal: col <= row; window: col > row - window),
 //   out = softmax(s) . v with an online softmax (m, l, acc in float32),
 //   acc / l with l == 0 guarded,
@@ -59,6 +60,11 @@
 //   variant that keeps two CTAs an SM would lose the load/compute overlap
 //   of the ring instead; this one keeps the tile loop and the ring as they
 //   are at hd 128, and is the simple one that is right first.
+//   hd 224 (Zamba2-7B's shared attention) runs hd 256's kernel on a row
+//   whose fourth box has columns 224-255 zero-filled as out of bounds, as
+//   hd 112's second box is: Q.K^T runs 14 k-steps, the two N = 128 P.V
+//   products do 14% more MMA work than the 224 columns need, and the pad
+//   columns are dropped at the epilogue. Same shared memory, one CTA an SM.
 //
 // float32 -- flash_fwd_kernel, plain FMAs: no tensor-core mode keeps the
 //   2e-5 float32 tolerance (TF32 keeps ~3 digits). One block per (64-row q
@@ -66,8 +72,9 @@
 //   columns and 8 rows x HD/16 output columns in registers; tiles converted
 //   to float32 in shared memory (rows padded by one word); tiles outside the
 //   band skipped, ragged edges masked. At hd 256 those tiles take 213,760 B
-//   of dynamic shared memory, under the 232,448 a block may have; the launch
-//   asks for exactly that with cudaFuncSetAttribute.
+//   of dynamic shared memory (189,184 B at hd 224), under the 232,448 a
+//   block may have; the launch asks for exactly that with
+//   cudaFuncSetAttribute.
 
 #include <cmath>
 
@@ -245,7 +252,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int HD>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse, int B,
-                   int S, int T_len, int H, int K, int causal, int window, cudaStream_t stream) {
+                   int S, int T_len, int H, int K, int causal, int window, double scale,
+                   cudaStream_t stream) {
   const size_t smem = sizeof(float) *
       (size_t)(BQ * (HD + 1) + BK * (HD + 1) + BK * HD + BQ * (BK + 1));
   auto kern = flash_fwd_kernel<T, HD>;
@@ -255,8 +263,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* 
   dim3 grid((S + BQ - 1) / BQ, B * H);
   kern<<<grid, NTHREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), lse, B, S, T_len, H, K, causal, window,
-      (float)(1.0 / sqrt((double)HD)));
+      static_cast<T*>(o), lse, B, S, T_len, H, K, causal, window, (float)scale);
   return cudaGetLastError();
 }
 
@@ -512,7 +519,8 @@ flash_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q,
 
 template <int HD>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse, int B, int S,
-                   int T_len, int H, int K, int causal, int window, cudaStream_t stream) {
+                   int T_len, int H, int K, int causal, int window, double scale,
+                   cudaStream_t stream) {
   constexpr int NB = (HD + BOX - 1) / BOX;
   constexpr size_t smem = 1024 + (size_t)NB * 128 * (BQ + 2 * STAGES * BK);
   if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v) % 16 != 0) return cudaErrorInvalidValue;
@@ -526,19 +534,19 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* 
   if (err != cudaSuccess) return err;
   const int grid = ((S + BQ - 1) / BQ) * B * H;
   kern<<<grid, NTHREADS, smem, stream>>>(tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, B, S,
-                                         T_len, H, K, causal, window,
-                                         (float)(1.0 / sqrt((double)HD)) * LOG2E);
+                                         T_len, H, K, causal, window, (float)scale * LOG2E);
   return cudaGetLastError();
 }
 
 cudaError_t dispatch_hd(const void* q, const void* k, const void* v, void* o, float* lse, int B,
                         int S, int T_len, int H, int K, int hd, int causal, int window,
-                        cudaStream_t stream) {
+                        double sc, cudaStream_t stream) {
   switch (hd) {
-    case 64: return launch<64>(q, k, v, o, lse, B, S, T_len, H, K, causal, window, stream);
-    case 112: return launch<112>(q, k, v, o, lse, B, S, T_len, H, K, causal, window, stream);
-    case 128: return launch<128>(q, k, v, o, lse, B, S, T_len, H, K, causal, window, stream);
-    case 256: return launch<256>(q, k, v, o, lse, B, S, T_len, H, K, causal, window, stream);
+    case 64: return launch<64>(q, k, v, o, lse, B, S, T_len, H, K, causal, window, sc, stream);
+    case 112: return launch<112>(q, k, v, o, lse, B, S, T_len, H, K, causal, window, sc, stream);
+    case 128: return launch<128>(q, k, v, o, lse, B, S, T_len, H, K, causal, window, sc, stream);
+    case 224: return launch<224>(q, k, v, o, lse, B, S, T_len, H, K, causal, window, sc, stream);
+    case 256: return launch<256>(q, k, v, o, lse, B, S, T_len, H, K, causal, window, sc, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -548,12 +556,13 @@ cudaError_t dispatch_hd(const void* q, const void* k, const void* v, void* o, fl
 template <typename T>
 cudaError_t dispatch_hd(const void* q, const void* k, const void* v, void* o, float* lse, int B,
                         int S, int T_len, int H, int K, int hd, int causal, int window,
-                        cudaStream_t stream) {
+                        double sc, cudaStream_t stream) {
   switch (hd) {
-    case 64: return launch<T, 64>(q, k, v, o, lse, B, S, T_len, H, K, causal, window, stream);
-    case 112: return launch<T, 112>(q, k, v, o, lse, B, S, T_len, H, K, causal, window, stream);
-    case 128: return launch<T, 128>(q, k, v, o, lse, B, S, T_len, H, K, causal, window, stream);
-    case 256: return launch<T, 256>(q, k, v, o, lse, B, S, T_len, H, K, causal, window, stream);
+    case 64: return launch<T, 64>(q, k, v, o, lse, B, S, T_len, H, K, causal, window, sc, stream);
+    case 112: return launch<T, 112>(q, k, v, o, lse, B, S, T_len, H, K, causal, window, sc, stream);
+    case 128: return launch<T, 128>(q, k, v, o, lse, B, S, T_len, H, K, causal, window, sc, stream);
+    case 224: return launch<T, 224>(q, k, v, o, lse, B, S, T_len, H, K, causal, window, sc, stream);
+    case 256: return launch<T, 256>(q, k, v, o, lse, B, S, T_len, H, K, causal, window, sc, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -566,18 +575,23 @@ extern "C" const char* cuda_error_string(int err) {
 
 // dtype: 0 float32 (FMA kernel), 1 bfloat16 (wgmma + TMA kernel). window < 0
 // means none. q: (B,S,H,hd), k/v: (B,T,K,hd), o: (B,S,H,hd), all contiguous;
-// lse: null, or (B,H,S) float32 for m + log l per row.
+// lse: null, or (B,H,S) float32 for m + log l per row. scale: the softmax
+// scale, taken in float32 (kernels/flash_attention.py passes 1 / sqrt(hd)
+// unless told otherwise, the value these kernels computed before).
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                    void* lse, int B, int S, int T_len, int H, int K, int hd,
-                                   int causal, int window, int dtype, void* stream) {
+                                   int causal, int window, int dtype, double scale,
+                                   void* stream) {
   if (B <= 0 || S <= 0 || T_len <= 0 || K <= 0 || H % K != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
   switch (dtype) {
     case 0:
-      return (int)dispatch_hd<float>(q, k, v, o, l, B, S, T_len, H, K, hd, causal, window, st);
+      return (int)dispatch_hd<float>(q, k, v, o, l, B, S, T_len, H, K, hd, causal, window,
+                                     scale, st);
     case 1:
-      return (int)hopper::dispatch_hd(q, k, v, o, l, B, S, T_len, H, K, hd, causal, window, st);
+      return (int)hopper::dispatch_hd(q, k, v, o, l, B, S, T_len, H, K, hd, causal, window,
+                                      scale, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -7,14 +7,15 @@
 // kernels/flash_attention.py:flash_attention_bwd_plain.
 //
 // Computes, for query head h reading kv head kh = h / G (G = H / K), with
-// s = (q . k) * hd^-0.5 and the forward's mask (causal: col <= row; window:
+// s = (q . k) * scale (the caller's softmax scale, as the forward's: hd^-0.5,
+// or Zamba2's (hd/2)^-0.5) and the forward's mask (causal: col <= row; window:
 // col > row - window; col < T):
 //   P  = exp(s - lse[row])            (0 where masked; lse from the forward)
 //   D  = rowsum(dO * O)               (pre-pass, float32)
 //   dV = P^T dO                       (P rounded to the input type first, as
 //                                      the forward's P . V rounds it)
 //   dS = P * (dO V^T - D)
-//   dK = dS^T Q * hd^-0.5,  dQ = dS K * hd^-0.5
+//   dK = dS^T Q * scale,  dQ = dS K * scale
 // A row that no key may reach gets zero gradient everywhere (P = 0).
 //
 // What bounds it on the H100: operations. The five products are 2.5x the
@@ -75,6 +76,11 @@
 //   tile's loads overlap dQ; dV is waited for before dS^T is formed, so
 //   that P^T's registers are free. Shared memory 214 KB: K and V 64 KB, Q
 //   and dO 64 KB, dS^T twice 16 KB, the two dQ tiles 64 KB.
+//   hd 224 (Zamba2-7B's shared attention) runs hd 256's plan on rows whose
+//   columns 224-255 are zero-filled as out of bounds (as hd 112's 112-127):
+//   S^T and dP^T take 14 k-steps; the second warpgroup's dK and dV columns
+//   past 223 are not written, and its last dQ box lies wholly past hd, so
+//   the bulk reduction drops it.
 //
 // float32 -- flash_bwd_kernel: FMAs from float32 tiles in shared memory
 //   (no tensor-core mode keeps float32 accuracy), 256 threads each with a
@@ -951,7 +957,7 @@ template <typename T, int HD>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* o, const void* dout,
                    const float* lse, float* D, float* dq_acc, int* sem, void* dq, void* dk,
                    void* dv, int B, int S, int T_len, int H, int K, int causal, int window,
-                   cudaStream_t stream) {
+                   float scale, cudaStream_t stream) {
   const int64_t nq = (int64_t)B * S * H * HD;
   const int64_t rows = (int64_t)B * S * H;
   bwd_prep_kernel<T, HD><<<(unsigned)((rows * 32 + 255) / 256), 256, 0, stream>>>(
@@ -960,7 +966,6 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o, c
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
-  const float scale = (float)(1.0 / sqrt((double)HD));
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
     err = hopper::launch<HD>(q, k, v, dout, lse, D, dq_acc, sem, dk, dv, B, S, T_len, H, K,
                              causal, window, scale, stream);
@@ -992,16 +997,18 @@ template <typename T>
 cudaError_t dispatch_hd(const void* q, const void* k, const void* v, const void* o,
                         const void* dout, const float* lse, float* D, float* dq_acc, int* sem,
                         void* dq, void* dk, void* dv, int B, int S, int T_len, int H, int K,
-                        int hd, int causal, int window, cudaStream_t st) {
+                        int hd, int causal, int window, float sc, cudaStream_t st) {
   switch (hd) {
     case 64: return launch<T, 64>(q, k, v, o, dout, lse, D, dq_acc, sem, dq, dk, dv, B, S,
-                                  T_len, H, K, causal, window, st);
+                                  T_len, H, K, causal, window, sc, st);
     case 112: return launch<T, 112>(q, k, v, o, dout, lse, D, dq_acc, sem, dq, dk, dv, B, S,
-                                    T_len, H, K, causal, window, st);
+                                    T_len, H, K, causal, window, sc, st);
     case 128: return launch<T, 128>(q, k, v, o, dout, lse, D, dq_acc, sem, dq, dk, dv, B, S,
-                                    T_len, H, K, causal, window, st);
+                                    T_len, H, K, causal, window, sc, st);
+    case 224: return launch<T, 224>(q, k, v, o, dout, lse, D, dq_acc, sem, dq, dk, dv, B, S,
+                                    T_len, H, K, causal, window, sc, st);
     case 256: return launch<T, 256>(q, k, v, o, dout, lse, D, dq_acc, sem, dq, dk, dv, B, S,
-                                    T_len, H, K, causal, window, st);
+                                    T_len, H, K, causal, window, sc, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -1017,12 +1024,13 @@ extern "C" const char* cuda_error_string(int err) {
 // scratch; dq_acc: (B,S,H,hd) float32 scratch, zeroed here; sem: B H ceil(S/32)
 // int32 scratch (the counters that order dq's additions), zeroed here; dq:
 // (B,S,H,hd) of dtype, or dq_acc itself for float32 (no cast); dk, dv:
-// (B,T,K,hd) of dtype. All contiguous.
+// (B,T,K,hd) of dtype. All contiguous. scale: the forward's softmax scale,
+// taken in float32.
 extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, const void* o,
                                    const void* dout, const void* lse, void* D, void* dq_acc,
                                    void* sem, void* dq, void* dk, void* dv, int B, int S,
                                    int T_len, int H, int K, int hd, int causal, int window,
-                                   int dtype, void* stream) {
+                                   int dtype, double scale, void* stream) {
   if (B <= 0 || S <= 0 || T_len <= 0 || K <= 0 || H % K != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
@@ -1032,10 +1040,10 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, 
   switch (dtype) {
     case 0:
       return (int)dispatch_hd<float>(q, k, v, o, dout, l, d, acc, c, dq, dk, dv, B, S, T_len, H,
-                                     K, hd, causal, window, st);
+                                     K, hd, causal, window, (float)scale, st);
     case 1:
       return (int)dispatch_hd<__nv_bfloat16>(q, k, v, o, dout, l, d, acc, c, dq, dk, dv, B, S,
-                                             T_len, H, K, hd, causal, window, st);
+                                             T_len, H, K, hd, causal, window, (float)scale, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -5,7 +5,9 @@
 // C/B, x and log-decay tiles in VMEM; its wrapper transposes la and x to put
 // the head ahead of the chunk's rows).
 //
-// Computes, for each (b, chunk, head), in float32 (L in float64):
+// Computes, for each (b, chunk, head), in float32 (L in float64), with C and B
+// those of the head's group (G groups of H/G heads; head h reads group
+// h / (H/G), Mamba2's n_groups):
 //   L_t   = la_0 + ... + la_t                        (cumulative log decay)
 //   y_t   = sum_{s<=t} exp(L_t - L_s) (C_t . B_s) x_s          (Q x P)
 //   state = sum_s exp(L_{Q-1} - L_s) x_s (outer) B_s            (P x N)
@@ -30,9 +32,9 @@
 // SM sub-partition issues those products and the splits, adds and loads
 // that feed them.
 //
-// One block per (b*chunk, group of up to 16 heads; the wrapper picks the
-// group size that fills the SMs in the fewest waves). C . B^T is the same
-// for every head, so the block builds it once (the 16 x 8 tiles on or below
+// One block per (b*chunk, group of up to 16 heads of one B/C group; the
+// wrapper picks the size that fills the SMs in the fewest waves). C . B^T is
+// the same for every head of a B/C group, so the block builds it once (the 16 x 8 tiles on or below
 // the diagonal) into a shared tile CB[t][s] whose row stride (Q + 4) keeps
 // fragment loads free of bank conflicts. L is scanned in float64, one warp a
 // head, so that L_t - L_s keeps its digits when L reaches ~-100 over a
@@ -213,7 +215,7 @@ __global__ void __launch_bounds__(SLOT_THREADS * MAX_SLOTS, 1)
 ssd_intra_chunk_kernel(const float* __restrict__ la, const float* __restrict__ C,
                        const float* __restrict__ Bm, const float* __restrict__ x,
                        float* __restrict__ y, float* __restrict__ st,
-                       float* __restrict__ tot, int Q, int H, int N, int P, int HG) {
+                       float* __restrict__ tot, int Q, int H, int G, int N, int P, int HG) {
   extern __shared__ __align__(16) float smem[];
   const int slots = blockDim.x / SLOT_THREADS;
   const Layout lay = layout(Q, N, P, HG, slots);
@@ -228,16 +230,20 @@ ssd_intra_chunk_kernel(const float* __restrict__ la, const float* __restrict__ C
   const int warp = tid >> 5, lane = tid & 31, nwarps = nthreads >> 5;
   const int gq = lane >> 2, tq = lane & 3;            // mma fragment row / column
   const int64_t bc = blockIdx.x;                      // b * nc + chunk
-  const int h0 = blockIdx.y * HG;
-  const int hg = min(HG, H - h0);
+  // blockIdx.y: B/C group grp's head block; a block's heads share C and B
+  const int Hg = H / G, nblk = (Hg + HG - 1) / HG;
+  const int grp = blockIdx.y / nblk;
+  const int h0 = grp * Hg + (blockIdx.y % nblk) * HG;
+  const int hg = min(HG, (grp + 1) * Hg - h0);
 
   // 1. this group's la columns (zero past Q), the chunk's B and C.
   for (int i = tid; i < Qp * hg; i += nthreads) {
     const int t = i / hg, g = i % hg;
     Ls[g * Qp + t] = t < Q ? (double)la[(bc * Q + t) * H + h0 + g] : 0.0;
   }
-  load_tile(Bs, ldb, Bm + bc * Q * N, N, Q, Qp, N, tid, nthreads);
-  load_tile(Cs, lay.ldcc, C + bc * Q * N, N, Q, Qp, N, tid, nthreads);
+  const int64_t cb_off = (bc * Q * G + grp) * N, cb_ld = (int64_t)G * N;
+  load_tile(Bs, ldb, Bm + cb_off, cb_ld, Q, Qp, N, tid, nthreads);
+  load_tile(Cs, lay.ldcc, C + cb_off, cb_ld, Q, Qp, N, tid, nthreads);
   __syncthreads();
 
   // 2. L = cumsum(la) in float64, one warp a head: each lane sums a run of
@@ -402,15 +408,16 @@ extern "C" const char* cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// All float32 and contiguous, 16-byte aligned: la (BC,Q,H), C/B (BC,Q,N),
+// All float32 and contiguous, 16-byte aligned: la (BC,Q,H), C/B (BC,Q,G,N),
 // x (BC,Q,H,P) -> y (BC,Q,H,P), st (BC,H,P,N), tot (BC,H), BC = B * nc.
-// Q % 8 == 0 and Q <= 128, N % 4 == 0, P % 4 == 0, 1 <= HG <= 16, and the
+// Q % 8 == 0 and Q <= 128, N % 4 == 0, P % 4 == 0, G dividing H,
+// 1 <= HG <= 16 (heads a block serves, within one of the G groups), and the
 // shared memory of the one-slot layout within a block's 227 KB.
 extern "C" int ssd_intra_chunk_fwd(const void* la, const void* C, const void* B,
                                    const void* x, void* y, void* st, void* tot, int BC,
-                                   int Q, int H, int N, int P, int HG, void* stream) {
+                                   int Q, int H, int G, int N, int P, int HG, void* stream) {
   if (BC <= 0 || H <= 0 || Q <= 0 || Q > MAX_Q || Q % 8 || N <= 0 || N % 4 || P <= 0 ||
-      P % 4 || HG <= 0 || HG > MAX_HG)
+      P % 4 || HG <= 0 || HG > MAX_HG || G <= 0 || H % G)
     return (int)cudaErrorInvalidValue;
   int slots = MAX_SLOTS;
   while (slots > 1 && layout(Q, N, P, HG, slots).total * (int)sizeof(float) > MAX_SMEM)
@@ -420,11 +427,11 @@ extern "C" int ssd_intra_chunk_fwd(const void* la, const void* C, const void* B,
   cudaError_t err = cudaFuncSetAttribute(ssd_intra_chunk_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid(BC, (H + HG - 1) / HG);
+  dim3 grid(BC, G * ((H / G + HG - 1) / HG));
   ssd_intra_chunk_kernel<<<grid, slots * SLOT_THREADS, smem,
                            static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(la), static_cast<const float*>(C),
       static_cast<const float*>(B), static_cast<const float*>(x), static_cast<float*>(y),
-      static_cast<float*>(st), static_cast<float*>(tot), Q, H, N, P, HG);
+      static_cast<float*>(st), static_cast<float*>(tot), Q, H, G, N, P, HG);
   return (int)cudaGetLastError();
 }

@@ -7,14 +7,16 @@
 // kernels/ssd_scan.py:ssd_intra_chunk_bwd_plain, autograd through the
 // forward's plain version.
 //
-// The forward, per (b, chunk) and head h, with L = cumsum(la) over the Q rows:
+// The forward, per (b, chunk) and head h, with L = cumsum(la) over the Q rows
+// and C, B those of the head's group (G groups of H/G heads, Mamba2's
+// n_groups; head h reads group h / (H/G)):
 //   M[t,s] = exp(L_t - L_s) (C_t . B_s)   for s <= t, else 0
 //   y      = M x                           (Q x P)
 //   w_s    = exp(L_end - L_s),  state = (w x)^T B  (P x N),  tot = L_end
 // Given dy, dstate and dtot:
 //   dM[t,s] = dy_t . x_s                   (s <= t)
 //   dx      = M^T dy + w (B dstate^T)
-//   dCB     = sum_h exp(L_t - L_s) dM      (one matrix for all heads)
+//   dCB     = sum_h exp(L_t - L_s) dM      (one matrix for a group's heads)
 //   dC      = dCB B,   dB = dCB^T C + sum_h w (x dstate)
 //   dL_t    = sum_s G[t,s] - sum_s G[s,t] - E_t, G = dM * M,
 //             E_s = x_s . (w B dstate^T)_s, plus (sum_s E_s + dtot) at L_end
@@ -35,9 +37,10 @@
 // 80GB HBM3 at 700 W it takes ~6x its bound (PERF.md; tools/ssd_bwd_phases.py
 // shows where a stage's cycles go).
 //
-// Two kernels. ssd_bwd_heads: one block per (b * chunk, group of HG heads;
-// kernels/ssd_scan.py:bwd_heads_per_block), one block an SM, 12 warps: two
-// warpgroups of compute warps and a producer warpgroup. The producer's four
+// Two kernels. ssd_bwd_heads: one block per (b * chunk, block of HG heads
+// of one B/C group; kernels/ssd_scan.py:bwd_heads_per_block), one block an
+// SM, 12 warps: two warpgroups of compute warps and a producer warpgroup.
+// The producer's four
 // warps copy each stage's x, dy and dstate tiles by cp.async into the other
 // of two buffers while the compute warps work on the current one, form dB's
 // head term dBh += (w x) dstate (two 16-row strips a warp, summed in shared
@@ -78,9 +81,10 @@
 // straight-line code; any other shape runs the same plan with its counts at
 // run time, P in passes of 64 columns and dBh in the compute warps'
 // registers. The block then writes its
-// dCB and dBh partials. ssd_bwd_cb: one block a (b * chunk) sums the groups'
-// partials and forms dC = dCB B and dB = dCB^T C + dBh on the same 3xTF32
-// mma.sync path. Q <= 128, N <= 64 with N % 4 == 0, P % 4 == 0.
+// dCB and dBh partials. ssd_bwd_cb: one block a (b * chunk, B/C group) sums
+// the partials of that group's head blocks and forms dC = dCB B and
+// dB = dCB^T C + dBh on the same 3xTF32 mma.sync path. Q <= 128, N <= 64
+// with N % 4 == 0, P % 4 == 0.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -425,8 +429,8 @@ __device__ __forceinline__ void dbh_full(const Lane& ln, int r, const float* xs,
 template <int UB, int UE, int ROLE>
 __device__ __forceinline__ void segment_full(
     const Lane& ln, int S, int T, const float* xs, const float* dys, const float* dsts,
-    const float* Bg, const float2* L, const float* w, float* D, float* E, float4* xc, int bar,
-    float* dxh, int64_t row_x, int Q, float (&cb)[MAXU][4], float (&dcb)[MAXU][4]) {
+    const float* Bg, int ldbg, const float2* L, const float* w, float* D, float* E, float4* xc,
+    int bar, float* dxh, int64_t row_x, int Q, float (&cb)[MAXU][4], float (&dcb)[MAXU][4]) {
   const int gq = ln.gq, tq = ln.tq;
   const int sa = 16 * S + gq, sb = sa + 8;
   const float* xa = xs + sa * LDF;
@@ -440,8 +444,8 @@ __device__ __forceinline__ void segment_full(
     // (w B) dstate^T, and E_s = x_s . that; B's rows from global memory (a
     // chunk's B serves every head of the group, so they stay in cache)
     const float wa = sa < Q ? w[sa] : 0.f, wb = sb < Q ? w[sb] : 0.f;
-    const float* ba = Bg + (sa < Q ? sa : 0) * LDF + 2 * tq;
-    const float* bb = Bg + (sb < Q ? sb : 0) * LDF + 2 * tq;
+    const float* ba = Bg + (sa < Q ? sa : 0) * ldbg + 2 * tq;
+    const float* bb = Bg + (sb < Q ? sb : 0) * ldbg + 2 * tq;
 #pragma unroll 1
     for (int kb = 0; kb < NT; ++kb) {
       const int c = (8 * kb + 2 * tq) ^ ln.mg;
@@ -571,8 +575,23 @@ __device__ __forceinline__ void segment_full(
 struct Args {
   const float *la, *C, *Bm, *x, *dy, *dst, *dtot;
   float *dla, *dx, *part_dcb, *part_dbh;
-  int Q, H, N, P, HG;
+  int Q, H, G, N, P, HG;
 };
+
+// This block's heads: blockIdx.y is head block y % nblk of B/C group
+// y / nblk (nblk blocks of up to HG heads a group), so its heads share C
+// and B, whose rows are G N apart, the group's N columns at grp N.
+struct HeadBlock {
+  int h0, hg;
+  int64_t cb_off;   // C's and B's group columns in this chunk
+};
+__device__ __forceinline__ HeadBlock head_block(const Args& g) {
+  const int Hg = g.H / g.G, nblk = (Hg + g.HG - 1) / g.HG;
+  const int grp = blockIdx.y / nblk;
+  const int h0 = grp * Hg + (blockIdx.y % nblk) * g.HG;
+  return {h0, min(g.HG, (grp + 1) * Hg - h0),
+          ((int64_t)blockIdx.x * g.Q * g.G + grp) * g.N};
+}
 
 // Copy stage k's x, dy and dstate tiles into buffer k & 1, as thread t of nt,
 // and commit the copies.
@@ -581,7 +600,7 @@ __device__ __forceinline__ void issue_stage(const Args& g, const Layout& lay, fl
   const int Q = g.Q, H = g.H, N = g.N, P = g.P, npass = (P + PC - 1) / PC;
   const int64_t bc = blockIdx.x, row_x = (int64_t)H * P;
   const Stage st = stage_of(k, npass);
-  const int b = k & 1, h = blockIdx.y * g.HG + st.g, p0 = st.pass * PC, pw = min(PC, P - p0);
+  const int b = k & 1, h = head_block(g).h0 + st.g, p0 = st.pass * PC, pw = min(PC, P - p0);
   const int c4x = round_up(pw, 8) / 4, c4n = lay.Np / 4;
   const int nx = lay.Qp * c4x, total = 2 * nx + 4 * c4x * c4n;
   // row and column of chunk j of a tile c4 chunks wide: by shifts where c4
@@ -624,8 +643,10 @@ __device__ __forceinline__ void issue_stage(const Args& g, const Layout& lay, fl
 __device__ __forceinline__ void prelude(const Args& g, const Layout& lay, float* smem) {
   const int tid = threadIdx.x, Q = g.Q, N = g.N, Qp = lay.Qp;
   const int64_t bc = blockIdx.x;
-  load_async(smem, lay.ldn, g.Bm + bc * Q * N, N, Q, N, Qp, lay.Np, tid, NTHREADS);
-  load_async(smem + lay.off_x + lay.xbuf, lay.ldn, g.C + bc * Q * N, N, Q, N, Qp, lay.Np, tid,
+  const HeadBlock hb = head_block(g);
+  const int64_t ldg = (int64_t)g.G * N;
+  load_async(smem, lay.ldn, g.Bm + hb.cb_off, ldg, Q, N, Qp, lay.Np, tid, NTHREADS);
+  load_async(smem + lay.off_x + lay.xbuf, lay.ldn, g.C + hb.cb_off, ldg, Q, N, Qp, lay.Np, tid,
              NTHREADS);
   cp_async_commit();
   issue_stage(g, lay, smem, 0, tid, NTHREADS);
@@ -633,7 +654,7 @@ __device__ __forceinline__ void prelude(const Args& g, const Layout& lay, float*
   for (int i = tid; i < 2 * Qp; i += NTHREADS) smem[lay.off_e + i] = 0.f;
   if (tid / 32 == PRODUCER) {
     float v[4];
-    load_la(v, g.la, bc, Q, g.H, blockIdx.y * g.HG, tid % 32);
+    load_la(v, g.la, bc, Q, g.H, hb.h0, tid % 32);
     scan_head(v, Q, Qp, reinterpret_cast<float2*>(smem + lay.off_l), smem + lay.off_w, tid % 32);
   }
   cp_async_wait_all();   // every thread's copies of B, C and stage 0
@@ -652,7 +673,8 @@ __device__ __forceinline__ void producer_body(const Args& g, float* smem) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, Qp = lay.Qp;
   const int pw = warp - NCOMPUTE;                   // 0..3: strips 2 pw, 2 pw + 1 of dBh
   const int npass = (g.P + PC - 1) / PC;
-  const int h0 = blockIdx.y * g.HG, hg = min(g.HG, g.H - h0);
+  const HeadBlock hb = head_block(g);
+  const int h0 = hb.h0, hg = hb.hg;
   const int nstage = npass == 1 ? hg : hg * 2 * npass;
   const int64_t bc = blockIdx.x;
   const Lane ln = {lane >> 2, lane & 3, swz_mask(lane >> 2), swz_mask(2 * (lane & 3)),
@@ -724,15 +746,17 @@ __device__ __forceinline__ void heads_body(const Args& g, float* smem) {
   float* __restrict__ dx = g.dx;
   float* __restrict__ part_dcb = g.part_dcb;
   float* __restrict__ part_dbh = g.part_dbh;
-  const int Q = g.Q, H = g.H, N = g.N, P = g.P, HG = g.HG;
+  const int Q = g.Q, H = g.H, N = g.N, P = g.P;
   const Layout lay = layout(Q, N, P);
   const int Qp = lay.Qp, ns = FULL ? 8 : lay.ns, ldn = lay.ldn, ldp = lay.ldp;
   const int nbn = FULL ? NT : lay.Np / 8;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int gq = lane >> 2, tq = lane & 3;          // mma fragment row / column
   const int64_t bc = blockIdx.x;                    // b * nc + chunk
-  const int ngrp = gridDim.y, grp = blockIdx.y;
-  const int h0 = grp * HG, hg = min(HG, H - h0);
+  const int ngrp = gridDim.y, grp = blockIdx.y;   // the partials' head block
+  const HeadBlock hb = head_block(g);
+  const int h0 = hb.h0, hg = hb.hg;
+  const int ldbg = g.G * N;                         // row stride of B in global memory
   const int npass = (P + PC - 1) / PC;
   const int nstage = npass == 1 ? hg : hg * 2 * npass;
   const int64_t row_x = (int64_t)H * P;             // stride between rows of x and dy
@@ -809,14 +833,14 @@ __device__ __forceinline__ void heads_body(const Args& g, float* smem) {
       const Lane ln = {gq, tq, swz_mask(gq), swz_mask(2 * tq), swz_mask(2 * tq + 1)};
       float4* xc = reinterpret_cast<float4*>(smem + lay.off_xchg) + q * NT * 32 + lane;
       float* dxh = dx + bc * Q * row_x + (int64_t)h * P;
-      const float* Bg = Bm + bc * Q * N;
+      const float* Bg = Bm + hb.cb_off;
       if constexpr (C0F == MAXU) {
-        segment_full<0, MAXU, 1>(ln, S0, T0, xs, dys, dsts, Bg, L, w, D, E, xc, 1 + q, dxh, row_x,
-                                 Q, cb, dcb);
+        segment_full<0, MAXU, 1>(ln, S0, T0, xs, dys, dsts, Bg, ldbg, L, w, D, E, xc, 1 + q, dxh,
+                                 row_x, Q, cb, dcb);
       } else {
-        segment_full<0, C0F, 0>(ln, S0, T0, xs, dys, dsts, Bg, L, w, D, E, xc, 1 + q, dxh, row_x,
-                                Q, cb, dcb);
-        segment_full<C0F, MAXU, 2>(ln, S1, T1, xs, dys, dsts, Bg, L, w, D, E, xc, 1 + q, dxh,
+        segment_full<0, C0F, 0>(ln, S0, T0, xs, dys, dsts, Bg, ldbg, L, w, D, E, xc, 1 + q, dxh,
+                                row_x, Q, cb, dcb);
+        segment_full<C0F, MAXU, 2>(ln, S1, T1, xs, dys, dsts, Bg, ldbg, L, w, D, E, xc, 1 + q, dxh,
                                    row_x, Q, cb, dcb);
       }
     } else {
@@ -923,8 +947,8 @@ __device__ __forceinline__ void heads_body(const Args& g, float* smem) {
           const float wa_ = w[sa], wb_ = w[sb];
           for (int kb = 0; kb < nbn; ++kb) {
             const int c = 8 * kb + tq;
-            const float* Bg = Bm + bc * Q * N;
-            auto bv = [&](int r, int cc) { return r < Q && cc < N ? Bg[r * N + cc] : 0.f; };
+            const float* Bg = Bm + hb.cb_off;
+            auto bv = [&](int r, int cc) { return r < Q && cc < N ? Bg[r * ldbg + cc] : 0.f; };
             const Frag A = split_frag(wa_ * bv(sa, c), wb_ * bv(sb, c), wa_ * bv(sa, c + 4),
                                       wb_ * bv(sb, c + 4));
 #pragma unroll
@@ -1030,9 +1054,9 @@ ssd_bwd_heads(const float* __restrict__ la, const float* __restrict__ C,
               const float* __restrict__ dy, const float* __restrict__ dst,
               const float* __restrict__ dtot, float* __restrict__ dla,
               float* __restrict__ dx, float* __restrict__ part_dcb,
-              float* __restrict__ part_dbh, int Q, int H, int N, int P, int HG) {
+              float* __restrict__ part_dbh, int Q, int H, int G, int N, int P, int HG) {
   extern __shared__ __align__(16) float smem[];
-  const Args g = {la, C, Bm, x, dy, dst, dtot, dla, dx, part_dcb, part_dbh, Q, H, N, P, HG};
+  const Args g = {la, C, Bm, x, dy, dst, dtot, dla, dx, part_dcb, part_dbh, Q, H, G, N, P, HG};
   const int warp = threadIdx.x >> 5;
   const bool full = round_up(Q, 16) == 128 && N == LDF && P == LDF;
   if (warp >= NCOMPUTE) {
@@ -1064,7 +1088,7 @@ __host__ __device__ inline int cb_smem_floats(int Q, int N) {
 __global__ void __launch_bounds__(CB_THREADS)
 ssd_bwd_cb(const float* __restrict__ C, const float* __restrict__ Bm,
            const float* __restrict__ part_dcb, const float* __restrict__ part_dbh,
-           float* __restrict__ dC, float* __restrict__ dB, int Q, int N, int ngrp) {
+           float* __restrict__ dC, float* __restrict__ dB, int Q, int G, int N, int nblk) {
   extern __shared__ __align__(16) float smem[];
   const int Qp = round_up(Q, 16), ns = Qp / 16, ldq = round_up(Qp, 32);
   const int Np = round_up(N, 8), ldn = round_up(N, 32), nbn = Np / 8;
@@ -1072,18 +1096,21 @@ ssd_bwd_cb(const float* __restrict__ C, const float* __restrict__ Bm,
   float* Cs = dcbT + Qp * ldq;
   float* Bs = Cs + Qp * ldn;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, gq = lane >> 2, tq = lane & 3;
-  const int64_t bc = blockIdx.x;
-  load_async(Cs, ldn, C + bc * Q * N, N, Q, N, Qp, Np, tid, CB_THREADS);
-  load_async(Bs, ldn, Bm + bc * Q * N, N, Q, N, Qp, Np, tid, CB_THREADS);
+  // blockIdx.y: the B/C group, whose nblk head blocks' partials are summed
+  const int64_t bc = blockIdx.x, ldg = (int64_t)G * N;
+  const int64_t cb_off = (bc * Q * G + blockIdx.y) * N;
+  const int64_t blk0 = (bc * G + blockIdx.y) * nblk;
+  load_async(Cs, ldn, C + cb_off, ldg, Q, N, Qp, Np, tid, CB_THREADS);
+  load_async(Bs, ldn, Bm + cb_off, ldg, Q, N, Qp, Np, tid, CB_THREADS);
   cp_async_commit();
-  // the groups' partials, written on t >= 16 (s / 16) (zero elsewhere)
-  const float* pc_in = part_dcb + bc * ngrp * (int64_t)Qp * Qp;
+  // the head blocks' partials, written on t >= 16 (s / 16) (zero elsewhere)
+  const float* pc_in = part_dcb + blk0 * Qp * Qp;
   const int c4 = Qp / 4;
   for (int i = tid; i < Qp * c4; i += CB_THREADS) {
     const int s = i / c4, t = 4 * (i % c4);
     float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
     if (t >= 16 * (s / 16))
-      for (int g = 0; g < ngrp; ++g) {
+      for (int g = 0; g < nblk; ++g) {
         const float4 p =
             *reinterpret_cast<const float4*>(pc_in + (int64_t)g * Qp * Qp + s * Qp + t);
         v.x += p.x;
@@ -1114,9 +1141,9 @@ ssd_bwd_cb(const float* __restrict__ C, const float* __restrict__ Bm,
       const int n = 8 * j + 2 * tq, ta = t0 + gq, tb = ta + 8;
       if (n >= N) continue;
       if (ta < Q)
-        *reinterpret_cast<float2*>(dC + (bc * Q + ta) * N + n) = make_float2(acc[j][0], acc[j][1]);
+        *reinterpret_cast<float2*>(dC + cb_off + ta * ldg + n) = make_float2(acc[j][0], acc[j][1]);
       if (tb < Q)
-        *reinterpret_cast<float2*>(dC + (bc * Q + tb) * N + n) = make_float2(acc[j][2], acc[j][3]);
+        *reinterpret_cast<float2*>(dC + cb_off + tb * ldg + n) = make_float2(acc[j][2], acc[j][3]);
     }
   }
   // dB on s-strip `warp`: sum over t >= s of dCB[t][s] C[t][n], plus dBh
@@ -1130,12 +1157,12 @@ ssd_bwd_cb(const float* __restrict__ C, const float* __restrict__ Bm,
       for (int j = 0; j < NT; ++j)
         if (j < nbn) mma3(acc[j], A, Cs[sw(t, ldn, 8 * j + gq)], Cs[sw(t + 4, ldn, 8 * j + gq)]);
     }
-    const float* pb_in = part_dbh + bc * ngrp * (int64_t)Qp * N;
+    const float* pb_in = part_dbh + blk0 * Qp * N;
 #pragma unroll
     for (int j = 0; j < NT; ++j) {
       const int n = 8 * j + 2 * tq, sa = s0 + gq, sb = sa + 8;
       if (n >= N) continue;
-      for (int g = 0; g < ngrp; ++g) {
+      for (int g = 0; g < nblk; ++g) {
         const float2 va = *reinterpret_cast<const float2*>(pb_in + ((int64_t)g * Qp + sa) * N + n);
         const float2 vb = *reinterpret_cast<const float2*>(pb_in + ((int64_t)g * Qp + sb) * N + n);
         acc[j][0] += va.x;
@@ -1144,9 +1171,9 @@ ssd_bwd_cb(const float* __restrict__ C, const float* __restrict__ Bm,
         acc[j][3] += vb.y;
       }
       if (sa < Q)
-        *reinterpret_cast<float2*>(dB + (bc * Q + sa) * N + n) = make_float2(acc[j][0], acc[j][1]);
+        *reinterpret_cast<float2*>(dB + cb_off + sa * ldg + n) = make_float2(acc[j][0], acc[j][1]);
       if (sb < Q)
-        *reinterpret_cast<float2*>(dB + (bc * Q + sb) * N + n) = make_float2(acc[j][2], acc[j][3]);
+        *reinterpret_cast<float2*>(dB + cb_off + sb * ldg + n) = make_float2(acc[j][2], acc[j][3]);
     }
   }
 }
@@ -1157,17 +1184,19 @@ extern "C" const char* cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// All float32, contiguous and 16-byte aligned: la (BC,Q,H), C/B (BC,Q,N),
+// All float32, contiguous and 16-byte aligned: la (BC,Q,H), C/B (BC,Q,G,N),
 // x/dy (BC,Q,H,P), dst (BC,H,P,N), dtot (BC,H) -> dla (BC,Q,H),
-// dx (BC,Q,H,P), dC/dB (BC,Q,N); part_dcb (BC,G,Qp,Qp) and part_dbh
-// (BC,G,Qp,N) scratch, G = ceil(H / HG), Qp = Q rounded up to 16.
-// 0 < Q <= 128, 0 < N <= 64, N % 4 == 0, P > 0, P % 4 == 0, HG >= 1.
+// dx (BC,Q,H,P), dC/dB (BC,Q,G,N); part_dcb (BC,NB,Qp,Qp) and part_dbh
+// (BC,NB,Qp,N) scratch, NB = G ceil(H / G / HG) head blocks, Qp = Q rounded
+// up to 16. 0 < Q <= 128, 0 < N <= 64, N % 4 == 0, P > 0, P % 4 == 0,
+// G dividing H, 1 <= HG (heads a block serves, of one group).
 extern "C" int ssd_intra_chunk_bwd(const void* la, const void* C, const void* B, const void* x,
                                    const void* dy, const void* dst, const void* dtot, void* dla,
                                    void* dx, void* dC, void* dB, void* part_dcb, void* part_dbh,
-                                   int BC, int Q, int H, int N, int P, int HG, void* stream) {
+                                   int BC, int Q, int H, int G, int N, int P, int HG,
+                                   void* stream) {
   if (BC <= 0 || H <= 0 || Q <= 0 || Q > MAX_Q || N <= 0 || N > MAX_N || N % 4 || P <= 0 ||
-      P % 4 || HG <= 0)
+      P % 4 || HG <= 0 || G <= 0 || H % G)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int heads_smem = layout(Q, N, P).total * (int)sizeof(float);
@@ -1178,16 +1207,16 @@ extern "C" int ssd_intra_chunk_bwd(const void* la, const void* C, const void* B,
   if (err != cudaSuccess) return (int)err;
   err = cudaFuncSetAttribute(ssd_bwd_cb, cudaFuncAttributeMaxDynamicSharedMemorySize, cb_smem);
   if (err != cudaSuccess) return (int)err;
-  const int ngrp = (H + HG - 1) / HG;
-  ssd_bwd_heads<<<dim3(BC, ngrp), NTHREADS, heads_smem, st>>>(
+  const int nblk = (H / G + HG - 1) / HG;
+  ssd_bwd_heads<<<dim3(BC, G * nblk), NTHREADS, heads_smem, st>>>(
       static_cast<const float*>(la), static_cast<const float*>(C), static_cast<const float*>(B),
       static_cast<const float*>(x), static_cast<const float*>(dy), static_cast<const float*>(dst),
       static_cast<const float*>(dtot), static_cast<float*>(dla), static_cast<float*>(dx),
-      static_cast<float*>(part_dcb), static_cast<float*>(part_dbh), Q, H, N, P, HG);
+      static_cast<float*>(part_dcb), static_cast<float*>(part_dbh), Q, H, G, N, P, HG);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  ssd_bwd_cb<<<BC, CB_THREADS, cb_smem, st>>>(
+  ssd_bwd_cb<<<dim3(BC, G), CB_THREADS, cb_smem, st>>>(
       static_cast<const float*>(C), static_cast<const float*>(B),
       static_cast<const float*>(part_dcb), static_cast<const float*>(part_dbh),
-      static_cast<float*>(dC), static_cast<float*>(dB), Q, N, ngrp);
+      static_cast<float*>(dC), static_cast<float*>(dB), Q, G, N, nblk);
   return (int)cudaGetLastError();
 }

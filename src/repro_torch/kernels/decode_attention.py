@@ -18,8 +18,9 @@ from typing import Optional
 import torch
 
 from . import build
-from .flash_attention import DTYPE_CODES, HEAD_DIMS
+from .flash_attention import DTYPE_CODES
 
+HEAD_DIMS = (64, 112, 128, 256)     # the decode kernel's (flash also takes 224)
 _NEG = -2.0e38
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # q, k, v, kv_len, out, lse (or null), scratch; B, T, H, K, hd, window, chunk, dtype; stream

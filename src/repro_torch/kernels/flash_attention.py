@@ -15,6 +15,7 @@ path), so that one has no TPU counterpart and is bound by operations.
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Optional
 
 import torch
@@ -24,20 +25,27 @@ from . import build
 
 _NEG = -2.0e38
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (64, 112, 128, 256)
-BWD_HEAD_DIMS = HEAD_DIMS           # the backward kernel's (hd 256: gemma3)
-_P, _I = ctypes.c_void_p, ctypes.c_int
-_SIGNATURES = {"flash_attention_fwd": [_P] * 5 + [_I] * 9 + [_P]}
-_BWD_SIGNATURES = {"flash_attention_bwd": [_P] * 12 + [_I] * 9 + [_P]}
+HEAD_DIMS = (64, 112, 128, 224, 256)
+BWD_HEAD_DIMS = HEAD_DIMS           # the backward kernel's (hd 256: gemma3; 224: Zamba2-7B)
+_P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+_SIGNATURES = {"flash_attention_fwd": [_P] * 5 + [_I] * 9 + [_D, _P]}
+_BWD_SIGNATURES = {"flash_attention_bwd": [_P] * 12 + [_I] * 9 + [_D, _P]}
 
 
-def _scores(q, k, causal, window):
+def default_scale(hd: int) -> float:
+    """hd^-1/2, the softmax scale where none is passed: 1 / sqrt(hd) in
+    float64, the value the kernels computed inside before they took one."""
+    return 1.0 / math.sqrt(hd)
+
+
+def _scores(q, k, causal, window, scale=None):
     """Masked float32 (float64 for float64 inputs) scores (B, K, G, S, T) and
-    the mask (S, T)."""
+    the mask (S, T); ``scale`` multiplies q . k (default hd^-1/2)."""
     B, S, H, hd = q.shape
     T, K = k.shape[1], k.shape[2]
     qg = q.reshape(B, S, K, H // K, hd)
-    s = widen(torch.einsum("bskgd,btkd->bkgst", qg, k)) * (hd ** -0.5)
+    scale = hd ** -0.5 if scale is None else scale
+    s = widen(torch.einsum("bskgd,btkd->bkgst", qg, k)) * scale
     rows = torch.arange(S, device=q.device)[:, None]
     cols = torch.arange(T, device=q.device)[None, :]
     ok = cols <= rows if causal else torch.ones((S, T), dtype=torch.bool, device=q.device)
@@ -47,37 +55,41 @@ def _scores(q, k, causal, window):
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                          causal: bool = True, window: Optional[int] = None) -> torch.Tensor:
+                          causal: bool = True, window: Optional[int] = None,
+                          softmax_scale: Optional[float] = None) -> torch.Tensor:
     """q: (B,S,H,hd); k/v: (B,T,K,hd) -> (B,S,H,hd). Full-softmax GQA with
-    float32 scores, -2e38 masking, weights cast to v's dtype."""
+    float32 scores (q . k times ``softmax_scale``, default hd^-1/2), -2e38
+    masking, weights cast to v's dtype."""
     B, S, H, hd = q.shape
-    s, _ = _scores(q, k, causal, window)
+    s, _ = _scores(q, k, causal, window, softmax_scale)
     w = torch.softmax(s, dim=-1).to(v.dtype)
     return torch.einsum("bkgst,btkd->bskgd", w, v).reshape(B, S, H, hd)
 
 
 def flash_attention_lse_plain(q: torch.Tensor, k: torch.Tensor, *, causal: bool = True,
-                              window: Optional[int] = None) -> torch.Tensor:
+                              window: Optional[int] = None,
+                              softmax_scale: Optional[float] = None) -> torch.Tensor:
     """The log-sum-exp of each row's masked scores, (B,H,S) float32: what the
     forward kernel writes for the backward (scores from q and k widened to
     float32, as the kernels' products accumulate)."""
     B, S, H, _ = q.shape
-    s, _ = _scores(widen(q), widen(k), causal, window)
+    s, _ = _scores(widen(q), widen(k), causal, window, softmax_scale)
     return torch.logsumexp(s, dim=-1).reshape(B, H, S)
 
 
 def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                               o: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor, *,
-                              causal: bool = True, window: Optional[int] = None):
+                              causal: bool = True, window: Optional[int] = None,
+                              softmax_scale: Optional[float] = None):
     """The backward in its explicit form, float32 inside (q, k, v, o and dout
     widened): P = exp(s - lse) (0 where masked), D = rowsum(dO * O),
     dV = P^T dO with P rounded to v's dtype, dS = P * (dO V^T - D),
-    dK = dS^T Q / sqrt(hd), dQ = dS K / sqrt(hd). Returns (dq, dk, dv) in the
-    inputs' dtype."""
+    dK = dS^T Q scale, dQ = dS K scale (``softmax_scale``, default
+    hd^-1/2). Returns (dq, dk, dv) in the inputs' dtype."""
     B, S, H, hd = q.shape
     K = k.shape[2]
     G = H // K
-    s, ok = _scores(widen(q), widen(k), causal, window)
+    s, ok = _scores(widen(q), widen(k), causal, window, softmax_scale)
     p = torch.where(ok, torch.exp(s - lse.reshape(B, K, G, S, 1)),
                     torch.zeros((), dtype=s.dtype, device=q.device))
     do = widen(dout).reshape(B, S, K, G, hd)
@@ -85,7 +97,7 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dv = torch.einsum("bkgst,bskgd->btkd", widen(p.to(v.dtype)), do)
     dp = torch.einsum("bskgd,btkd->bkgst", do, widen(v))
     ds = p * (dp - D[..., None])
-    scale = hd ** -0.5
+    scale = hd ** -0.5 if softmax_scale is None else softmax_scale
     dk = torch.einsum("bkgst,bskgd->btkd", ds, widen(q).reshape(B, S, K, G, hd)) * scale
     dq = torch.einsum("bkgst,btkd->bskgd", ds, widen(k)).reshape(B, S, H, hd) * scale
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
@@ -111,10 +123,10 @@ def _check(q, k, v):
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          causal: bool = True, window: Optional[int] = None,
-                         return_lse: bool = False):
+                         return_lse: bool = False, softmax_scale: Optional[float] = None):
     """Launch the CUDA kernel on PyTorch's current stream. With ``return_lse``
     the kernel also writes each row's log-sum-exp: returns (out, lse (B,H,S)
-    float32)."""
+    float32). ``softmax_scale`` multiplies q . k (default hd^-1/2)."""
     _check(q, k, v)
     B, S, H, hd = q.shape
     T, K = k.shape[1], k.shape[2]
@@ -126,7 +138,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             None if lse is None else lse.data_ptr(),
             B, S, T, H, K, hd, int(causal), -1 if window is None else int(window),
-            DTYPE_CODES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
+            DTYPE_CODES[q.dtype], default_scale(hd) if softmax_scale is None else softmax_scale,
+            torch.cuda.current_stream(q.device).cuda_stream)
     build.check(lib, err, "flash_attention_fwd")
     return (out, lse) if return_lse else out
 
@@ -140,9 +153,11 @@ def bwd_sem_count(B: int, S: int, H: int) -> int:
 
 def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              o: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor, *,
-                             causal: bool = True, window: Optional[int] = None):
+                             causal: bool = True, window: Optional[int] = None,
+                             softmax_scale: Optional[float] = None):
     """Launch the backward kernel: (dq, dk, dv) in the inputs' dtype. ``o`` and
-    ``lse`` are the forward's outputs, ``dout`` the gradient of ``o``."""
+    ``lse`` are the forward's outputs (at the same ``softmax_scale``),
+    ``dout`` the gradient of ``o``."""
     _check(q, k, v)
     B, S, H, hd = q.shape
     T, K = k.shape[1], k.shape[2]
@@ -166,6 +181,7 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             lse.data_ptr(), D.data_ptr(), dq_acc.data_ptr(), sem.data_ptr(), dq.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), B, S, T, H, K, hd, int(causal),
             -1 if window is None else int(window), DTYPE_CODES[q.dtype],
+            default_scale(hd) if softmax_scale is None else softmax_scale,
             torch.cuda.current_stream(q.device).cuda_stream)
     build.check(lib, err, "flash_attention_bwd")
     return dq, dk, dv

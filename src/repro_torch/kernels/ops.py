@@ -29,6 +29,7 @@ their plain versions: the norm is then the whole tensor's on every rank.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -89,20 +90,22 @@ class _FlashAttention(torch.autograd.Function):
     """The CUDA forward writing each row's log-sum-exp; the CUDA backward."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window):
-        out, lse = flash_attention_cuda(q, k, v, causal=causal, window=window, return_lse=True)
+    def forward(ctx, q, k, v, causal, window, softmax_scale):
+        out, lse = flash_attention_cuda(q, k, v, causal=causal, window=window, return_lse=True,
+                                        softmax_scale=softmax_scale)
         LAUNCHES["flash_attention"] += 1
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.causal, ctx.window = causal, window
+        ctx.causal, ctx.window, ctx.softmax_scale = causal, window, softmax_scale
         return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd_cuda(q, k, v, out, lse, dout.contiguous(),
-                                              causal=ctx.causal, window=ctx.window)
+                                              causal=ctx.causal, window=ctx.window,
+                                              softmax_scale=ctx.softmax_scale)
         LAUNCHES["flash_attention_bwd"] += 1
-        return dq, dk, dv, None, None
+        return dq, dk, dv, None, None, None
 
 
 class _SSDIntraChunk(torch.autograd.Function):
@@ -138,16 +141,21 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-5) -> torch
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: Optional[int] = None) -> torch.Tensor:
-    """q: (B,S,H,hd); k/v: (B,T,K,hd) -> (B,S,H,hd)."""
+                    causal: bool = True, window: Optional[int] = None,
+                    softmax_scale: Optional[float] = None) -> torch.Tensor:
+    """q: (B,S,H,hd); k/v: (B,T,K,hd) -> (B,S,H,hd); the scores are q . k
+    times ``softmax_scale`` (default hd^-1/2)."""
     if isinstance(q, DTensor):
         return sharded.flash_attention(q, k, v, causal=causal, window=window,
-                                       local=flash_attention)
+                                       local=functools.partial(flash_attention,
+                                                               softmax_scale=softmax_scale))
     if not _on_cuda(q, "flash_attention"):
-        return flash_attention_plain(q, k, v, causal=causal, window=window)
+        return flash_attention_plain(q, k, v, causal=causal, window=window,
+                                     softmax_scale=softmax_scale)
     if _wants_grad(q, k, v):
-        return _FlashAttention.apply(q, k, v, causal, window)
-    out = flash_attention_cuda(q, k, v, causal=causal, window=window)
+        return _FlashAttention.apply(q, k, v, causal, window, softmax_scale)
+    out = flash_attention_cuda(q, k, v, causal=causal, window=window,
+                               softmax_scale=softmax_scale)
     LAUNCHES["flash_attention"] += 1
     return out
 
@@ -173,7 +181,8 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def ssd_intra_chunk(la: torch.Tensor, C: torch.Tensor, B_in: torch.Tensor, x: torch.Tensor):
-    """la: (B,nc,Q,H); C/B_in: (B,nc,Q,N); x: (B,nc,Q,H,P) ->
+    """la: (B,nc,Q,H); C/B_in: (B,nc,Q,N), or (B,nc,Q,G,N) for G groups
+    (head h reads group h // (H/G)); x: (B,nc,Q,H,P) ->
     (y (B,nc,Q,H,P), states (B,nc,H,P,N), tot (B,nc,H)), float32."""
     if isinstance(la, DTensor):
         return sharded.ssd_intra_chunk(la, C, B_in, x, local=ssd_intra_chunk)

@@ -29,14 +29,22 @@ from . import build
 
 MAX_HEADS_PER_BLOCK = 16
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_SIGNATURES = {"ssd_intra_chunk_fwd": [_P] * 7 + [_I] * 6 + [_P]}
-_BWD_SIGNATURES = {"ssd_intra_chunk_bwd": [_P] * 13 + [_I] * 6 + [_P]}
+_SIGNATURES = {"ssd_intra_chunk_fwd": [_P] * 7 + [_I] * 7 + [_P]}
+_BWD_SIGNATURES = {"ssd_intra_chunk_bwd": [_P] * 13 + [_I] * 7 + [_P]}
 BWD_MAX_Q, BWD_MAX_N = 128, 64      # the backward kernel's limits (any Q, N % 4 == 0)
+
+
+def head_groups(H: int, C: torch.Tensor) -> torch.Tensor:
+    """The B/C group each of the H heads reads, (H,) int64: C (B,nc,Q,N) is
+    one group; C (B,nc,Q,G,N) G groups, head h reading group h // (H/G)."""
+    G = C.shape[3] if C.dim() == 5 else 1
+    return torch.arange(H, device=C.device) // (H // G)
 
 
 def ssd_intra_chunk_plain(la: torch.Tensor, C: torch.Tensor, B_in: torch.Tensor,
                           x: torch.Tensor):
-    """la: (B,nc,Q,H) log-decay; C/B_in: (B,nc,Q,N); x: (B,nc,Q,H,P).
+    """la: (B,nc,Q,H) log-decay; C/B_in: (B,nc,Q,N), or (B,nc,Q,G,N) for G
+    groups of heads; x: (B,nc,Q,H,P).
 
     Returns (y (B,nc,Q,H,P), states (B,nc,H,P,N), tot (B,nc,H)) in float32,
     or in float64 where the inputs are float64 (an oracle for the kernel).
@@ -44,17 +52,24 @@ def ssd_intra_chunk_plain(la: torch.Tensor, C: torch.Tensor, B_in: torch.Tensor,
     la, C, B_in, x = (widen(t) for t in (la, C, B_in, x))
     Q = la.shape[2]
     L = torch.cumsum(la, dim=2)
-    CB = torch.einsum("bcqn,bcsn->bcqs", C, B_in)
+    if C.dim() == 5:
+        grp = head_groups(la.shape[3], C)
+        CB = torch.einsum("bcqgn,bcsgn->bcqsg", C, B_in)[..., grp]     # (B,nc,Q,Q,H)
+    else:
+        CB = torch.einsum("bcqn,bcsn->bcqs", C, B_in)[..., None]
     seg = L[:, :, :, None, :] - L[:, :, None, :, :]              # (B,nc,Q,Q,H)
     tri = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=la.device))
     # masked before the exp: above the diagonal seg > 0 may overflow, and the
     # gradient of where(mask, exp(seg), 0) would then be 0 * inf
     seg = torch.where(tri[None, None, :, :, None], seg, float("-inf"))
-    M = torch.exp(seg) * CB[..., None]
+    M = torch.exp(seg) * CB
     y = torch.einsum("bcqsh,bcshp->bcqhp", M, x)
     tot = L[:, :, -1, :]
     w_end = torch.exp(tot[:, :, None, :] - L)
-    st = torch.einsum("bcqh,bcqhp,bcqn->bchpn", w_end, x, B_in)
+    if C.dim() == 5:
+        st = torch.einsum("bcqh,bcqhp,bcqhn->bchpn", w_end, x, B_in[:, :, :, grp])
+    else:
+        st = torch.einsum("bcqh,bcqhp,bcqn->bchpn", w_end, x, B_in)
     return y, st, tot
 
 
@@ -75,7 +90,8 @@ def heads_per_block(BC: int, H: int, n_sm: int, max_heads: int = MAX_HEADS_PER_B
     """Heads a block serves: fewest waves of one-block-per-SM blocks over the
     card, each block paying for one C . B^T (about one head's work) besides
     its heads; at most ``max_heads`` (the forward's shared memory and scan
-    take ``MAX_HEADS_PER_BLOCK``)."""
+    take ``MAX_HEADS_PER_BLOCK``). With G groups of heads a block serves
+    heads of one group: pass BC * G and the heads of a group, H / G."""
     def cost(hg):
         waves = math.ceil(BC * math.ceil(H / hg) / n_sm)
         return waves * (hg + 1)
@@ -101,18 +117,20 @@ def bwd_heads_per_block(BC: int, H: int, n_sm: int) -> int:
 def check_inputs(la: torch.Tensor, C: torch.Tensor, B_in: torch.Tensor, x: torch.Tensor,
                  q_multiple: int = 8):
     """Raise ValueError unless the tensors are what the kernel takes: float32,
-    contiguous and 16-byte aligned, la (B,nc,Q,H), C/B_in (B,nc,Q,N),
-    x (B,nc,Q,H,P) with Q % q_multiple == 0 (8 for the forward, 1 for the
-    backward), Q <= 128, N % 4 == 0, P % 4 == 0. Returns (B, nc, Q, H, N, P)."""
+    contiguous and 16-byte aligned, la (B,nc,Q,H), C/B_in (B,nc,Q,N) or
+    (B,nc,Q,G,N) with G dividing H, x (B,nc,Q,H,P) with Q % q_multiple == 0
+    (8 for the forward, 1 for the backward), Q <= 128, N % 4 == 0,
+    P % 4 == 0. Returns (B, nc, Q, H, G, N, P)."""
     ts = (la, C, B_in, x)
     if any(t.dtype != torch.float32 for t in ts):
         raise ValueError("ssd_intra_chunk_cuda takes float32 tensors")
-    if la.dim() != 4 or C.dim() != 4 or x.dim() != 5 or C.shape != B_in.shape:
+    if la.dim() != 4 or C.dim() not in (4, 5) or x.dim() != 5 or C.shape != B_in.shape:
         raise ValueError(f"bad shapes la {tuple(la.shape)} C {tuple(C.shape)} "
                          f"B {tuple(B_in.shape)} x {tuple(x.shape)}")
     Bs, nc, Q, H = la.shape
+    G = C.shape[3] if C.dim() == 5 else 1
     N, P = C.shape[-1], x.shape[-1]
-    if C.shape[:3] != (Bs, nc, Q) or x.shape[:4] != (Bs, nc, Q, H):
+    if C.shape[:3] != (Bs, nc, Q) or x.shape[:4] != (Bs, nc, Q, H) or H % G:
         raise ValueError(f"la {tuple(la.shape)}, C {tuple(C.shape)} and x {tuple(x.shape)} "
                          "do not match")
     if Q % q_multiple or Q > 128 or N % 4 or P % 4:
@@ -120,7 +138,7 @@ def check_inputs(la: torch.Tensor, C: torch.Tensor, B_in: torch.Tensor, x: torch
                          f"N % 4 == 0 and P % 4 == 0; got Q {Q}, N {N}, P {P}")
     if not all(t.is_contiguous() and t.data_ptr() % 16 == 0 for t in ts):
         raise ValueError("ssd_intra_chunk_cuda needs contiguous, 16-byte aligned tensors")
-    return Bs, nc, Q, H, N, P
+    return Bs, nc, Q, H, G, N, P
 
 
 def ssd_intra_chunk_cuda(la: torch.Tensor, C: torch.Tensor, B_in: torch.Tensor,
@@ -129,17 +147,17 @@ def ssd_intra_chunk_cuda(la: torch.Tensor, C: torch.Tensor, B_in: torch.Tensor,
     that pass ``check_inputs``."""
     if not all(t.is_cuda for t in (la, C, B_in, x)):
         raise ValueError("ssd_intra_chunk_cuda takes CUDA tensors")
-    Bs, nc, Q, H, N, P = check_inputs(la, C, B_in, x)
+    Bs, nc, Q, H, G, N, P = check_inputs(la, C, B_in, x)
     lib = build.library("ssd_intra_chunk", _SIGNATURES)
     n_sm = torch.cuda.get_device_properties(x.device).multi_processor_count
-    hg = heads_per_block(Bs * nc, H, n_sm)
+    hg = heads_per_block(Bs * nc * G, H // G, n_sm)
     y = torch.empty_like(x)
     st = torch.empty((Bs, nc, H, P, N), dtype=torch.float32, device=x.device)
     tot = torch.empty((Bs, nc, H), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         err = lib.ssd_intra_chunk_fwd(
             la.data_ptr(), C.data_ptr(), B_in.data_ptr(), x.data_ptr(), y.data_ptr(),
-            st.data_ptr(), tot.data_ptr(), Bs * nc, Q, H, N, P, hg,
+            st.data_ptr(), tot.data_ptr(), Bs * nc, Q, H, G, N, P, hg,
             torch.cuda.current_stream(x.device).cuda_stream)
     build.check(lib, err, "ssd_intra_chunk_fwd")
     return y, st, tot
@@ -150,13 +168,14 @@ def ssd_intra_chunk_bwd_cuda(la: torch.Tensor, C: torch.Tensor, B_in: torch.Tens
                              dtot: torch.Tensor, heads_per_group: int | None = None):
     """Launch the backward kernels on PyTorch's current stream: (dla, dC, dB,
     dx) for the output gradients ``dy`` (like x), ``dstates`` (B,nc,H,P,N)
-    and ``dtot`` (B,nc,H). Takes CUDA tensors that pass ``check_inputs``
-    with any Q <= 128, and N <= 64. ``heads_per_group`` overrides
-    ``bwd_heads_per_block``'s plan."""
+    and ``dtot`` (B,nc,H); dC and dB are shaped as C and B_in. Takes CUDA
+    tensors that pass ``check_inputs`` with any Q <= 128, and N <= 64.
+    ``heads_per_group`` overrides ``bwd_heads_per_block``'s plan (heads a
+    block serves, all of one B/C group)."""
     ts = (la, C, B_in, x, dy, dstates, dtot)
     if not all(t.is_cuda for t in ts):
         raise ValueError("ssd_intra_chunk_bwd_cuda takes CUDA tensors")
-    Bs, nc, Q, H, N, P = check_inputs(la, C, B_in, x, q_multiple=1)
+    Bs, nc, Q, H, G, N, P = check_inputs(la, C, B_in, x, q_multiple=1)
     if Q > BWD_MAX_Q or N > BWD_MAX_N:
         raise ValueError(f"ssd_intra_chunk_bwd_cuda takes Q <= {BWD_MAX_Q} and N <= "
                          f"{BWD_MAX_N}; got Q {Q}, N {N}")
@@ -166,11 +185,11 @@ def ssd_intra_chunk_bwd_cuda(la: torch.Tensor, C: torch.Tensor, B_in: torch.Tens
                 or t.data_ptr() % 16:
             raise ValueError(f"ssd_intra_chunk_bwd_cuda: {name} must be contiguous, 16-byte "
                              f"aligned float32 {tuple(shape)}, got {tuple(t.shape)} {t.dtype}")
-    BC = Bs * nc
+    BC, Hg = Bs * nc, H // G
     lib = build.library("ssd_intra_chunk_bwd", _BWD_SIGNATURES)
     n_sm = torch.cuda.get_device_properties(x.device).multi_processor_count
-    hg = heads_per_group or bwd_heads_per_block(BC, H, n_sm)
-    ngrp, Qp = math.ceil(H / hg), -(-Q // 16) * 16
+    hg = min(heads_per_group or bwd_heads_per_block(BC * G, Hg, n_sm), Hg)
+    ngrp, Qp = G * math.ceil(Hg / hg), -(-Q // 16) * 16
     dla, dC, dB, dx = (torch.empty_like(t) for t in (la, C, B_in, x))
     f32 = dict(dtype=torch.float32, device=x.device)
     part_dcb = torch.empty((BC, ngrp, Qp, Qp), **f32)
@@ -179,7 +198,7 @@ def ssd_intra_chunk_bwd_cuda(la: torch.Tensor, C: torch.Tensor, B_in: torch.Tens
         err = lib.ssd_intra_chunk_bwd(
             la.data_ptr(), C.data_ptr(), B_in.data_ptr(), x.data_ptr(), dy.data_ptr(),
             dstates.data_ptr(), dtot.data_ptr(), dla.data_ptr(), dx.data_ptr(), dC.data_ptr(),
-            dB.data_ptr(), part_dcb.data_ptr(), part_dbh.data_ptr(), BC, Q, H, N, P, hg,
+            dB.data_ptr(), part_dcb.data_ptr(), part_dbh.data_ptr(), BC, Q, H, G, N, P, hg,
             torch.cuda.current_stream(x.device).cuda_stream)
     build.check(lib, err, "ssd_intra_chunk_bwd")
     return dla, dC, dB, dx

@@ -14,9 +14,11 @@ default at full width with ``--layers`` layers (by default as
 ``chip_smoke.py`` trains it: phi4-mini 8, granite-moe-1b-a400m 24,
 gemma3-12b 6, one block of 5 local and 1 global, zamba2-7b 14, two groups
 and a tail of 2, xlstm-1.3b 16, two blocks of 1 sLSTM and 7 mLSTM,
-whisper-tiny all 4 decoder layers and its 4 encoder layers), bf16 params
+whisper-tiny all 4 decoder layers and its 4 encoder layers,
+zamba2-7b-instruct 24 of 81 with its first four hybrid sites), bf16 params
 and fp32 AdamW state, ``--batch`` x ``--seq`` tokens (4 x 2048;
-whisper-tiny's ``--seq`` defaults to its 448-token text context), remat
+whisper-tiny's ``--seq`` defaults to its 448-token text context,
+zamba2-7b-instruct's batch and length to 2 x 4096), remat
 "full"; one warm-up step, then one profiled train step. For each window
 it prints one JSON line: host-clock wall time without and with the profiler,
 device busy time (the union of kernel intervals) and idle share, and device
@@ -26,7 +28,11 @@ MoE model the sort and gather categories hold the routing and dispatch (with
 the embedding lookup and, in training, the loss's gather); a further line
 splits the MoE layers' device time by function of ``models/moe.py``
 (``moe_breakdown``, the program's spans recorded for that window only: one
-prefill and one decode step, or the train step's forward and recompute).
+prefill and one decode step, or the train step's forward and recompute);
+on Zamba2-7B one splits the train step's device time by phase
+(``zamba2_breakdown``: the SSD, the shared blocks, the rest of the mixer, the
+head, the optimizer and the backward, from the spans ``mamba.ssd``,
+``zamba2.shared``, ``model.layer``, ``model.head``, ``step.optimizer``).
 Needs a CUDA device.
 
 Run:  PYTHONPATH=src python -m repro_torch.launch.profile [--arch zamba2-7b] [--layers N]
@@ -45,6 +51,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from ..configs import get_config
+from ..configs.base import cut_depth
 from ..device import resolve_device
 from ..models import build_model
 from .. import spans
@@ -127,9 +134,21 @@ def profile_window(fn, device: torch.device, top: int) -> dict:
 
 # --train's default depth a model
 TRAIN_LAYERS = {"phi4-mini-3.8b": 8, "granite-moe-1b-a400m": 24, "gemma3-12b": 6,
-                "zamba2-7b": 14, "xlstm-1.3b": 16, "whisper-tiny": 4}
-# --train's default sequence length a model, where not 2048
-TRAIN_SEQ = {"whisper-tiny": 448}
+                "zamba2-7b": 14, "xlstm-1.3b": 16, "whisper-tiny": 4,
+                "zamba2-7b-instruct": 24}
+# --train's default sequence length and batch a model, where not 2048 and 4
+TRAIN_SEQ = {"whisper-tiny": 448, "zamba2-7b-instruct": 4096}
+TRAIN_BATCH = {"zamba2-7b-instruct": 2}
+
+OPTIMIZER_KERNELS = re.compile(r"adamw_kernel|sumsq_kernel")
+# the spans of a Zamba2 train step that zamba2_breakdown splits by, innermost
+# first, and the phase each stands for
+ZAMBA2_PHASES = (("mamba.ssd", "ssd (forward and recompute)"),
+                 ("zamba2.shared", "shared blocks (forward and recompute)"),
+                 ("model.layer", "rest of the mixer (forward and recompute)"),
+                 ("model.head", "head forward"),
+                 ("step.optimizer", "optimizer"),
+                 ("step.forward", "forward outside the layers"))
 
 # functions of models/moe.py that moe_ffn calls, the ones that call no other first
 MOE_FUNCTIONS = ("route", "dispatch_plan", "load_balance_aux", "experts")
@@ -174,12 +193,61 @@ def moe_breakdown(fn, device: torch.device) -> dict:
     return {f: dict(sorted(c.items())) for f, c in sorted(out.items())}
 
 
+def _innermost(event, names: tuple):
+    """The first of ``names`` among the spans around an op, innermost
+    first, else None."""
+    around = set()
+    while event is not None:
+        around.add(event.name)
+        event = event.cpu_parent
+    return next((n for n in names if n in around), None)
+
+
+def zamba2_breakdown(fn, device: torch.device) -> dict:
+    """Device ms, by phase and category, of one run of ``fn()`` (a Zamba2
+    train step): each kernel charged to the innermost of ``ZAMBA2_PHASES``'
+    spans around the op that launched it (host activity on, so this window
+    is slower than the others); what autograd's own thread launches, outside
+    every span but the recomputed layers', is the backward. With the spans'
+    counters (``sites``, ``chunks``) summed."""
+    torch.cuda.synchronize(device)
+    with spans.record(profiler=True) as rec, \
+            profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize(device)
+    names = tuple(n for n, _ in ZAMBA2_PHASES)
+    label = dict(ZAMBA2_PHASES)
+    out: dict[str, dict[str, float]] = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA and OPTIMIZER_KERNELS.search(e.name):
+            # AdamW's Triton launches come from no op the profiler ties to the
+            # step.optimizer span: charged by their names
+            cats = out.setdefault(label["step.optimizer"], {})
+            cats["adamw"] = cats.get("adamw", 0.0) + (e.time_range.end - e.time_range.start) / 1e3
+        if e.device_type != torch.autograd.DeviceType.CPU or not e.kernels:
+            continue
+        where = _innermost(e, names)
+        for k in e.kernels:
+            if OPTIMIZER_KERNELS.search(k.name):
+                continue
+            cats = out.setdefault(label[where] if where else "backward (autograd's thread)", {})
+            cat = _category(k.name)
+            cats[cat] = cats.get(cat, 0.0) + k.duration / 1e3
+    counters: dict[str, int] = {}
+    for sp in rec.spans:
+        for k, v in (sp.fields or {}).items():
+            counters[k] = counters.get(k, 0) + v
+    return {"device_ms": {p: round(sum(c.values()), 3) for p, c in sorted(out.items())},
+            "device_ms_by_category": {p: dict(sorted(c.items())) for p, c in sorted(out.items())},
+            "counters": counters}
+
+
 def profile_train(args, dev: torch.device) -> dict:
     from ..data import DatasetSpec, Loader
     from ..launch.train import to_device
     from ..optim import AdamWConfig
     from ..runtime import RuntimeConfig, make_train_state, make_train_step
-    cfg = dataclasses.replace(get_config(args.arch), n_layers=args.layers)
+    cfg = cut_depth(get_config(args.arch), args.layers)
     model = build_model(cfg)
     rt = RuntimeConfig(remat="full", opt=AdamWConfig(lr=1e-4), schedule="constant")
     state = {"s": make_train_state(model, torch.Generator(device=dev).manual_seed(args.seed),
@@ -203,6 +271,10 @@ def profile_train(args, dev: torch.device) -> dict:
         res["moe"] = {"window": "train step, MoE layers (forward and recompute)", **meta,
                       "device_ms_by_function": moe_breakdown(run_step, dev)}
         print(json.dumps(res["moe"]), flush=True)
+    if cfg.family == "zamba2":
+        res["zamba2"] = {"window": "train step by phase", **meta,
+                         **zamba2_breakdown(run_step, dev)}
+        print(json.dumps(res["zamba2"]), flush=True)
     return res
 
 
@@ -216,7 +288,8 @@ def main(argv=None) -> dict:
     ap.add_argument("--prompt-len", type=int, default=512)
     ap.add_argument("--gen", type=int, default=32)
     ap.add_argument("--train", action="store_true", help="profile one train step")
-    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--batch", type=int, default=None,
+                    help="with --train: TRAIN_BATCH's or 4 (serving takes --requests)")
     ap.add_argument("--seq", type=int, default=None, help="with --train: TRAIN_SEQ's or 2048")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--top", type=int, default=12)
@@ -227,6 +300,7 @@ def main(argv=None) -> dict:
         args.arch = args.arch or "phi4-mini-3.8b"
         args.layers = args.layers or TRAIN_LAYERS.get(args.arch, 8)
         args.seq = args.seq or TRAIN_SEQ.get(args.arch, 2048)
+        args.batch = args.batch or TRAIN_BATCH.get(args.arch, 4)
         return profile_train(args, dev)
     cfg = get_config(args.arch or "qwen3-14b")
     if args.layers:

@@ -30,6 +30,7 @@ written only by the rank holding the row.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional
 
 import torch
@@ -83,13 +84,16 @@ def _mask(S_q: int, S_k: int, *, causal: bool, window: Optional[int], q_offset,
 
 
 def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
-         window: Optional[int] = None, q_offset=0, kv_len=None) -> torch.Tensor:
-    """Reference GQA attention. q: (B,S,H,hd); k/v: (B,T,K,hd); H % K == 0."""
+         window: Optional[int] = None, q_offset=0, kv_len=None,
+         softmax_scale: Optional[float] = None) -> torch.Tensor:
+    """Reference GQA attention. q: (B,S,H,hd); k/v: (B,T,K,hd); H % K == 0;
+    scores q . k times ``softmax_scale`` (default hd^-1/2)."""
     B, S, H, hd = q.shape
     T, K = k.shape[1], k.shape[2]
     G = H // K
     qg = q.reshape(B, S, K, G, hd)
-    logits = torch.einsum("bskgd,btkd->bkgst", qg, k).float() * (hd ** -0.5)
+    scale = hd ** -0.5 if softmax_scale is None else softmax_scale
+    logits = torch.einsum("bskgd,btkd->bkgst", qg, k).float() * scale
     logits = logits + _mask(S, T, causal=causal, window=window, q_offset=q_offset,
                             kv_len=kv_len, device=q.device)
     w = torch.softmax(logits, dim=-1).to(v.dtype)
@@ -104,7 +108,7 @@ BLOCKWISE_THRESHOLD = 2048
 
 def blockwise_sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
                    window: Optional[int] = None, q_offset=0, q_chunk: int = 512,
-                   k_chunk: int = 1024) -> torch.Tensor:
+                   k_chunk: int = 1024, softmax_scale: Optional[float] = None) -> torch.Tensor:
     """Online-softmax attention over (q_chunk, k_chunk) blocks, in plain
     PyTorch: O(S * hd) memory instead of O(S * T). Falls back to ``sdpa``
     where the chunks do not divide S and T, as ``repro``'s does."""
@@ -113,8 +117,9 @@ def blockwise_sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal:
     G = H // K
     qc, kc = min(q_chunk, S), min(k_chunk, T)
     if S % qc or T % kc:
-        return sdpa(q, k, v, causal=causal, window=window, q_offset=q_offset)
-    scale = hd ** -0.5
+        return sdpa(q, k, v, causal=causal, window=window, q_offset=q_offset,
+                    softmax_scale=softmax_scale)
+    scale = hd ** -0.5 if softmax_scale is None else softmax_scale
     dev = q.device
     outs = []
     for qi in range(S // qc):
@@ -166,6 +171,14 @@ def _flat(out: torch.Tensor) -> torch.Tensor:
     this step of the backward instead (a slice forward, a gather back)."""
     B, S, H, hd = out.shape
     return constrain(out.reshape(B, S, H * hd), "dp", None, "model")
+
+
+def softmax_scale(cfg: ModelConfig) -> Optional[float]:
+    """The scores' scale: None (the kernels' hd^-1/2) unless the config
+    divides the head dim first, as Zamba2's (hd/2)^-1/2 (``repro``'s configs,
+    which the parity tests pass in, have no such field)."""
+    div = getattr(cfg, "attn_scale_div", 1)
+    return None if div == 1 else (cfg.hd / div) ** -0.5
 
 
 def attention(
@@ -230,17 +243,22 @@ def attention(
         k = apply_rope(k, cos, sin)
 
     if cache is None:
+        scale = softmax_scale(cfg)
         if q.device.type == "cpu" and S >= BLOCKWISE_THRESHOLD and isinstance(q, DTensor):
             out = sharded.flash_attention(q, k, v, causal=causal, window=window,
-                                          local=blockwise_sdpa)
+                                          local=functools.partial(blockwise_sdpa,
+                                                                  softmax_scale=scale))
         elif q.device.type == "cpu" and S >= BLOCKWISE_THRESHOLD:
-            out = blockwise_sdpa(q, k, v, causal=causal, window=window)
+            out = blockwise_sdpa(q, k, v, causal=causal, window=window, softmax_scale=scale)
         else:
-            out = ops.flash_attention(q, k, v, causal=causal, window=window)
+            out = ops.flash_attention(q, k, v, causal=causal, window=window,
+                                      softmax_scale=scale)
         new_cache = KVCache(k, v)
     else:
         if S != 1:
             raise ValueError(f"decode takes one token per sequence, got S={S}")
+        if softmax_scale(cfg) is not None:
+            raise ValueError("the decode kernel takes the default softmax scale only")
         ring = kv_positions is not None
         at = cache_write_pos if ring else cache_pos
         if isinstance(cache.k, DTensor):

@@ -133,6 +133,22 @@ def swiglu(p, x: torch.Tensor) -> torch.Tensor:
     return dense(p["down"], F.silu(dense(p["gate"], x)) * dense(p["up"], x))
 
 
+def gated_mlp_init(gen: torch.Generator, d: int, d_ff: int, dtype=torch.float32):
+    return {"gate_up": dense_init(gen, d, 2 * d_ff, dtype=dtype),
+            "down": dense_init(gen, d_ff, d, dtype=dtype)}
+
+
+def gated_mlp(p, x: torch.Tensor, *, adapter=None) -> torch.Tensor:
+    """GELU(gate) * up (the exact, erf GELU) from one fused gate_up product
+    (gate its first half), then down; ``adapter`` ({"a", "b"}, a low-rank
+    pair, Zamba2's per-site LoRA) adds x a b to gate_up before the split."""
+    gu = dense(p["gate_up"], x)
+    if adapter is not None:
+        gu = gu + dense(adapter["b"], dense(adapter["a"], x))
+    gate, up = gu.chunk(2, dim=-1)
+    return dense(p["down"], F.gelu(gate) * up)
+
+
 # -- rotary embeddings ---------------------------------------------------------
 def rope_tables(positions: torch.Tensor, hd: int, theta: float, dtype=torch.float32):
     """positions: (S,) int -> cos/sin (S, hd/2), float32 (or ``dtype``)."""

@@ -5,16 +5,19 @@ The port of ``src/repro/models/mamba2.py``, serving and training. Recurrence
 (heads H, head dim P, state N, chunk Q):
     h_t = a_t * h_{t-1} + dt_t * (B_t ⊗ x_t)        h: (H, P, N)
     y_t = C_t · h_t + D * x_t
-with a_t = exp(dt_t * A), A = -exp(A_log) < 0.
+with a_t = exp(dt_t * A), A = -exp(A_log) < 0. B and C come in ``ssm_groups``
+groups (Mamba2's n_groups; head h reads group h // (H/G)), and the gated
+norm after the scan normalises each group's d_inner / G channels apart.
 
 The intra-chunk block goes through ``kernels.ops.ssd_intra_chunk`` (the CUDA
 kernel on the card, its plain version on the CPU; under autograd on the card
-its backward kernel too); the inter-chunk scan is a loop over the chunks,
-differentiable as written (each chunk's entering state kept in a list and
-stacked, no in-place write). Two differences from ``repro``: the prefill form also
-returns the layer's decode state (the raw conv tail and the final SSM state,
-which ``repro``'s ``hybrid.prefill`` recomputes inline), and the decode form
-updates the cache's tensors IN PLACE where JAX returns new ones.
+its backward kernel too); the inter-chunk scan (``carry_states``) is, in
+training, one product with the chunks' decays for each block of up to 64
+chunks, and otherwise a loop over the chunks. Two
+differences from ``repro``: the prefill form also returns the layer's decode
+state (the raw conv tail and the final SSM state, which ``repro``'s
+``hybrid.prefill`` recomputes inline), and the decode form updates the
+cache's tensors IN PLACE where JAX returns new ones.
 """
 
 from __future__ import annotations
@@ -29,7 +32,14 @@ from ..configs.base import ModelConfig
 from ..hints import constrain
 from ..kernels import ops, sharded
 from ..precision import compute_dtype, widen
+from ..spans import span, tally
 from .layers import dense, dense_init, norm
+
+
+def groups(cfg) -> int:
+    """B/C groups: ``cfg.ssm_groups``; 1 for ``repro``'s configs, which the
+    parity tests pass in and which have no such field."""
+    return getattr(cfg, "ssm_groups", 1)
 
 
 class MambaCache(NamedTuple):
@@ -42,11 +52,12 @@ def mamba_init(gen: torch.Generator, cfg: ModelConfig, *, dtype=torch.float32):
     whatever ``dtype`` is, as in ``repro``."""
     d, di, N, H, W = (cfg.d_model, cfg.d_inner_ssm, cfg.ssm_state, cfg.n_ssm_heads,
                       cfg.ssm_conv_width)
-    conv_ch = di + 2 * N
+    GN = groups(cfg) * N
+    conv_ch = di + 2 * GN
     dev = gen.device
     conv_w = torch.randn((W, conv_ch), generator=gen, device=dev) * (W ** -0.5)
     return {
-        "in_proj": dense_init(gen, d, 2 * di + 2 * N + H, dtype=dtype),
+        "in_proj": dense_init(gen, d, 2 * di + 2 * GN + H, dtype=dtype),
         "conv_w": conv_w.to(dtype),
         "conv_b": torch.zeros((conv_ch,), dtype=dtype, device=dev),
         "dt_bias": torch.zeros((H,), dtype=torch.float32, device=dev),
@@ -76,44 +87,106 @@ def ssd_chunked(x, dt, A, B_in, C_in, Q: int, h0=None):
     """Chunked SSD scan.
 
     x: (B, S, H, P); dt: (B, S, H) (post-softplus); A: (H,) negative;
-    B_in/C_in: (B, S, N) (single group, shared across heads).
+    B_in/C_in: (B, S, N) (one group, shared across heads), or (B, S, G, N)
+    (G groups: head h reads group h // (H/G)).
     Returns y: (B, S, H, P) in x's dtype and the final state (B, H, P, N).
     """
     Bsz, S, H, P = x.shape
     N = B_in.shape[-1]
+    grouped = B_in.dim() == 4
     S_orig = S
     if S % Q:
         # pad the tail with identity steps: dt=0 -> a=1, xbar=0 -> state unchanged
         pad = Q - S % Q
         x = F.pad(x, (0, 0, 0, 0, 0, pad))
         dt = F.pad(dt, (0, 0, 0, pad))
-        B_in = F.pad(B_in, (0, 0, 0, pad))
-        C_in = F.pad(C_in, (0, 0, 0, pad))
+        tail = (0, 0) * (B_in.dim() - 2) + (0, pad)
+        B_in = F.pad(B_in, tail)
+        C_in = F.pad(C_in, tail)
         S = S + pad
     nc = S // Q
+    tally(chunks=Bsz * nc)
 
     # log a_t, its heads laid out as x's (a slice where dt is whole)
     lac = constrain(widen(dt * A).reshape(Bsz, nc, Q, H), "dp", None, None, "model").contiguous()
     xc = widen(dt[..., None] * x).reshape(Bsz, nc, Q, H, P).contiguous()
-    Bc = widen(B_in).reshape(Bsz, nc, Q, N).contiguous()
-    Cc = widen(C_in).reshape(Bsz, nc, Q, N).contiguous()
+    Bc = widen(B_in).reshape(Bsz, nc, Q, *B_in.shape[2:]).contiguous()
+    Cc = widen(C_in).reshape(Bsz, nc, Q, *C_in.shape[2:]).contiguous()
     y_intra, states, _ = ops.ssd_intra_chunk(lac, Cc, Bc, xc)
 
     # inter-chunk scan over h: h_prevs[:, c] is the state entering chunk c
     L = torch.cumsum(lac, dim=2)                                         # (B,nc,Q,H)
-    decay = torch.exp(L[:, :, -1, :])                                    # (B,nc,H)
     h = torch.zeros((Bsz, H, P, N), dtype=compute_dtype(x.dtype), device=x.device) \
         if h0 is None else widen(h0)
-    entering = []
-    for c in range(nc):
-        entering.append(h)
-        h = decay[:, c, :, None, None] * h + states[:, c]
-    h_prevs = torch.stack(entering, dim=1)                               # (B,nc,H,P,N)
+    h_prevs, h = carry_states(states, L[:, :, -1, :], h)
 
-    # y_inter[t] = exp(L_t) * C_t · h_prev
-    y_inter = torch.einsum("bcqn,bchpn->bcqhp", Cc, h_prevs) * torch.exp(L)[..., None]
+    # y_inter[t] = exp(L_t) * C_t · h_prev (C_t of the head's group)
+    if grouped:
+        G = Cc.shape[3]
+        y_inter = torch.einsum("bcqgn,bcgjpn->bcqgjp", Cc,
+                               h_prevs.reshape(Bsz, nc, G, H // G, P, N)).reshape(
+            Bsz, nc, Q, H, P)
+    else:
+        y_inter = torch.einsum("bcqn,bchpn->bcqhp", Cc, h_prevs)
+    y_inter = y_inter * torch.exp(L)[..., None]
     y = (y_intra + y_inter).reshape(Bsz, S, H, P)[:, :S_orig]
     return y.to(x.dtype), h
+
+
+# chunks a product carries at once, so its work grows with the row's length,
+# not with its square
+CARRY_BLOCK = 64
+
+
+def carry_states(states: torch.Tensor, tot: torch.Tensor, h0: torch.Tensor):
+    """The inter-chunk scan: each chunk's own end state ``states``
+    (B,nc,H,P,N) carried across the chunks by their total log decays ``tot``
+    (B,nc,H), from the state ``h0`` (B,H,P,N). Returns (h_prevs (B,nc,H,P,N),
+    the state entering each chunk; the state after the last (B,H,P,N)).
+
+    Where autograd records it (training), block by block: each block of up
+    to ``CARRY_BLOCK`` chunks is one product (``_carry_block``) from the
+    state entering it, whose backward is a few products where ``repro``'s
+    chunk loop leaves two small ops a chunk; on an H100 the scan's forward
+    and backward ran 1.1-3.1x faster so, at 1-8 rows of 8-64 chunks.
+    Otherwise (prefill) the chunk loop, whose forward alone ran faster at
+    4-8 rows and within 0.6 ms at 1-2 rows. Every (batch row, head) is carried
+    apart, so on a mesh it runs on each rank's batch and head shards
+    (``kernels.sharded.batch_heads``)."""
+    if isinstance(states, DTensor):
+        return sharded.batch_heads(carry_states, (states, tot, h0), (2, 2, 1), (2, 1))
+    nc = tot.shape[1]
+    if not states.requires_grad:
+        decay, entering, h = torch.exp(tot), [], h0
+        for c in range(nc):
+            entering.append(h)
+            h = decay[:, c, :, None, None] * h + states[:, c]
+        return torch.stack(entering, dim=1), h
+    entering, h = [], h0
+    for c in range(0, nc, CARRY_BLOCK):
+        h_prevs, h = _carry_block(states[:, c:c + CARRY_BLOCK], tot[:, c:c + CARRY_BLOCK], h)
+        entering.append(h_prevs)
+    return torch.cat(entering, dim=1) if len(entering) > 1 else entering[0], h
+
+
+def _carry_block(states: torch.Tensor, tot: torch.Tensor, h0: torch.Tensor):
+    """``carry_states`` over nc chunks in one product:
+
+        h_c = exp(tot_0 + ... + tot_{c-1}) h0
+              + sum_{j<c} exp(tot_{j+1} + ... + tot_{c-1}) states_j
+
+    for c = 0..nc, the (nc+1)^2 decays summed from the chunks' own totals
+    (no difference of long running sums, which would lose digits), as
+    ``repro``'s chunk loop computes h_c one chunk at a time."""
+    Bsz, nc, H = tot.shape
+    T = nc + 1
+    x = F.pad(tot, (0, 0, 1, 0)).transpose(1, 2)                         # (B,H,T): 0, tot_0, ..
+    ones = torch.ones((T, T), dtype=torch.bool, device=tot.device)
+    # seg[c, j] = x_{j+1} + ... + x_c, a running sum over c of the x_c below j
+    seg = torch.cumsum(x[..., None].expand(Bsz, H, T, T).masked_fill(~ones.tril(-1), 0.0), dim=-2)
+    decay = torch.exp(seg.masked_fill(~ones.tril(), float("-inf")))      # [c, j], j <= c
+    out = torch.einsum("bhcj,bjhpn->bchpn", decay, torch.cat([h0[:, None], states], dim=1))
+    return out[:, :nc], out[:, nc]
 
 
 def mamba_forward(p, x: torch.Tensor, cfg: ModelConfig, *, cache: MambaCache | None = None):
@@ -124,11 +197,13 @@ def mamba_forward(p, x: torch.Tensor, cfg: ModelConfig, *, cache: MambaCache | N
     (decode, S = 1) the cache's tensors are updated in place and returned.
     """
     Bsz, S, d = x.shape
-    di, N, H, P, W = (cfg.d_inner_ssm, cfg.ssm_state, cfg.n_ssm_heads, cfg.ssm_head_dim,
-                      cfg.ssm_conv_width)
+    di, N, H, P, W, G = (cfg.d_inner_ssm, cfg.ssm_state, cfg.n_ssm_heads, cfg.ssm_head_dim,
+                         cfg.ssm_conv_width, groups(cfg))
+    if cache is not None and G > 1:
+        raise ValueError("decode takes one B/C group only")
 
     zxbcdt = dense(p["in_proj"], x)
-    z, xBC, dt_raw = torch.split(zxbcdt, [di, di + 2 * N, H], dim=-1)
+    z, xBC, dt_raw = torch.split(zxbcdt, [di, di + 2 * G * N, H], dim=-1)
 
     if cache is None:
         # the last W-1 conv inputs, left-padded with the zeros _causal_conv
@@ -143,15 +218,19 @@ def mamba_forward(p, x: torch.Tensor, cfg: ModelConfig, *, cache: MambaCache | N
         xBC = F.silu(conv_out)[:, None, :]
         cache.conv.copy_(window[:, 1:, :])
 
-    xs, B_in, C_in = torch.split(xBC, [di, N, N], dim=-1)
+    xs, B_in, C_in = torch.split(xBC, [di, G * N, G * N], dim=-1)
     xs = constrain(xs.reshape(Bsz, S, H, P), "dp", None, "model", None)
-    B_in = constrain(B_in, "dp", None, None)
-    C_in = constrain(C_in, "dp", None, None)
+    if G > 1:
+        B_in, C_in = B_in.reshape(Bsz, S, G, N), C_in.reshape(Bsz, S, G, N)
+    else:
+        B_in = constrain(B_in, "dp", None, None)
+        C_in = constrain(C_in, "dp", None, None)
     dt = F.softplus(widen(dt_raw) + p["dt_bias"])
     A = -torch.exp(p["A_log"])
 
     if cache is None:
-        y, hT = ssd_chunked(xs, dt, A, B_in, C_in, cfg.ssm_chunk)
+        with span("mamba.ssd"):
+            y, hT = ssd_chunked(xs, dt, A, B_in, C_in, cfg.ssm_chunk)
         state = MambaCache(conv=conv_tail, h=hT)
     else:
         a = torch.exp(dt * A)                                           # (B,1,H)
@@ -164,14 +243,26 @@ def mamba_forward(p, x: torch.Tensor, cfg: ModelConfig, *, cache: MambaCache | N
 
     y = y + p["D"].to(y.dtype)[None, None, :, None] * xs
     y = y.reshape(Bsz, S, di)
-    y = norm(p["gnorm"], y * F.silu(z), cfg.norm_eps)
+    y = gated_norm(p["gnorm"], y, z, G, cfg.norm_eps)
     return dense(p["out_proj"], y), state
+
+
+def gated_norm(p, y: torch.Tensor, z: torch.Tensor, G: int, eps: float) -> torch.Tensor:
+    """rmsnorm of y * silu(z), each of the G groups of channels on its own:
+    one group through ``norm``; G groups normalised by the kernel with a unit
+    scale, then times the scale, as Zamba2's ``RMSNormGated`` rounds."""
+    g = y * F.silu(z)
+    if G == 1:
+        return norm(p, g, eps)
+    Bsz, S, di = g.shape
+    unit = {"scale": torch.ones(di // G, dtype=g.dtype, device=g.device)}
+    return norm(unit, g.reshape(Bsz, S, G, di // G), eps).reshape(Bsz, S, di) * p["scale"]
 
 
 def empty_mamba_cache(cfg: ModelConfig, B: int, dtype, device=None) -> MambaCache:
     di, N, H, P, W = (cfg.d_inner_ssm, cfg.ssm_state, cfg.n_ssm_heads, cfg.ssm_head_dim,
                       cfg.ssm_conv_width)
     return MambaCache(
-        conv=torch.zeros((B, W - 1, di + 2 * N), dtype=dtype, device=device),
+        conv=torch.zeros((B, W - 1, di + 2 * groups(cfg) * N), dtype=dtype, device=device),
         h=torch.zeros((B, H, P, N), dtype=torch.float32, device=device),
     )

@@ -219,7 +219,17 @@ def _gaps(cfg, kind: str) -> dict:
             # dot with no contracting dim; the port's broadcasts
             return {"decode state outer product": -L * 2 * B * H * P * N}
         uses = 1 if kind == "prefill" else fwd + 2
-        return {**gaps, "state and y_inter outer products": -L * uses * outer}
+        # in training the port's inter-chunk scan is one product of the
+        # (n+1)^2 decays with the states of each block of n <= CARRY_BLOCK
+        # chunks (models/mamba2.carry_states), where repro's scan is
+        # elementwise, and takes both operands' gradients; prefill's is the
+        # chunk loop, elementwise too
+        from repro_torch.models.mamba2 import CARRY_BLOCK
+        carry = 0 if kind == "prefill" else sum(
+            2 * B * H * (min(CARRY_BLOCK, nc - c) + 1) ** 2 * P * N
+            for c in range(0, nc, CARRY_BLOCK))
+        return {**gaps, "state and y_inter outer products": -L * uses * outer,
+                "inter-chunk scan as one product": L * uses * carry}
     if cfg.family == "ssm":
         d, di, H = cfg.d_model, cfg.ssm_expand * cfg.d_model, cfg.n_heads
         dh = di // H

@@ -27,7 +27,11 @@ for bit) on the smoke phi4-mini and whisper; the program's spans holding the
 launches made inside them on the profiler's clock; the fused AdamW
 (``kernels/adamw.py``) against its plain version bit for bit and through
 ``optim.update`` against the plain loop over several steps, one launch of
-each kernel a leaf, no host sync, and the clip's norm repeating bit for bit.
+each kernel a leaf, no host sync, and the clip's norm repeating bit for bit;
+Zamba2-7B's head dim 224 with its (hd/2)^-1/2 scale passed to the flash
+forward and backward, the default scale's bits, the grouped SSD forward and
+backward against float64 with one group giving the ungrouped bits, and the
+smoke Zamba2 trained on the card against the CPU.
 Every test here
 carries the ``cuda`` marker and skips without a card. The file imports no JAX,
 so it runs where only PyTorch is installed:
@@ -979,3 +983,167 @@ def test_grad_norm_repeats_bit_for_bit_on_card(cuda_card, gdt):
     assert torch.equal(a, b)
     want = torch.sqrt(sum(t.double().square().sum() for t in grads.values()))
     assert float(a) == pytest.approx(float(want), rel=1e-6)
+
+
+# -- Zamba2-7B: head dim 224 with a passed softmax scale, grouped SSD ---------
+ZAMBA2_SCALE = (224 / 2) ** -0.5
+
+
+@ATTN_DTYPE
+@pytest.mark.parametrize("B,S,H,K,window", [
+    (2, 1, 1, 1, None), (2, 17, 2, 2, None), (2, 65, 2, 2, 64), (2, 300, 4, 4, None),
+    (1, 129, 5, 1, None), (1, 2048, 32, 32, None)])
+def test_flash_kernel_hd224_with_scale_on_card(cuda_card, B, S, H, K, window, dtype):
+    """hd 224 (a row's fourth box half zero-filled, P.V as two N = 128
+    halves) with Zamba2's scale (hd/2)^-1/2 passed in, forward and lse: one
+    row, ragged tiles, a window, GQA 5:1, and the shared block's 32 heads at
+    S 2048."""
+    td, tol = DTYPES[dtype], TOL[dtype]
+    q, k, v = _card_inputs(cuda_card, [(B, S, H, 224), (B, S, K, 224), (B, S, K, 224)], td, 21)
+    out, lse = flash_attention_cuda(q, k, v, window=window, return_lse=True,
+                                    softmax_scale=ZAMBA2_SCALE)
+    # against the plain version on the inputs widened to float32: in bf16 the
+    # plain version rounds P and the output itself (at this scale's sharper
+    # softmax one element of 144,480 at GQA 5:1 differed by 0.027 from it)
+    want = flash_attention_plain(q.float(), k.float(), v.float(), window=window,
+                                 softmax_scale=ZAMBA2_SCALE)
+    torch.testing.assert_close(out.float(), want, atol=tol, rtol=tol)
+    want = flash_attention_lse_plain(q, k, window=window, softmax_scale=ZAMBA2_SCALE)
+    torch.testing.assert_close(lse, want, atol=1e-4, rtol=1e-4)
+
+
+@ATTN_DTYPE
+@pytest.mark.parametrize("B,S,H,K,window", [
+    (2, 1, 1, 1, None), (2, 17, 2, 2, None), (2, 130, 2, 2, 64), (1, 129, 5, 1, None),
+    (1, 1024, 32, 32, None)])
+def test_flash_bwd_kernel_hd224_with_scale_on_card(cuda_card, B, S, H, K, window, dtype):
+    """The backward at hd 224 with the scale passed in: dq, dk and dv
+    against the plain backward at the same scale (dq on the scale of
+    max|dv| at S = 1, where it is zero)."""
+    td = DTYPES[dtype]
+    q, k, v, do = _card_inputs(cuda_card, [(B, S, H, 224), (B, S, K, 224), (B, S, K, 224),
+                                           (B, S, H, 224)], td, 22)
+    lse = flash_attention_lse_plain(q, k, window=window, softmax_scale=ZAMBA2_SCALE)
+    o = flash_attention_plain(q, k, v, window=window, softmax_scale=ZAMBA2_SCALE).contiguous()
+    got = flash_attention_bwd_cuda(q, k, v, o, lse, do, window=window,
+                                   softmax_scale=ZAMBA2_SCALE)
+    want = flash_attention_bwd_plain(q, k, v, o, lse, do, window=window,
+                                     softmax_scale=ZAMBA2_SCALE)
+    top = float(want[2].float().abs().max())
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == td and g.shape == w.shape
+        assert _rel_err(g, w, top if S == 1 else None) < GRAD_TOL[dtype], name
+
+
+@ATTN_DTYPE
+@pytest.mark.parametrize("hd", [64, 112, 128, 256])
+def test_flash_default_scale_is_one_over_sqrt_hd_on_card(cuda_card, hd, dtype):
+    """No scale passed gives the bits of 1/sqrt(hd) passed, forward and
+    backward (the value the kernels computed inside before they took one),
+    and through ``ops.flash_attention``'s autograd Function at Zamba2's
+    scale the gradients of the plain version."""
+    td = DTYPES[dtype]
+    q, k, v, do = _card_inputs(cuda_card, [(2, 130, 4, hd), (2, 130, 2, hd), (2, 130, 2, hd),
+                                           (2, 130, 4, hd)], td, 23)
+    o, lse = flash_attention_cuda(q, k, v, return_lse=True)
+    o2, lse2 = flash_attention_cuda(q, k, v, return_lse=True, softmax_scale=hd ** -0.5)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    for a, b in zip(flash_attention_bwd_cuda(q, k, v, o, lse, do),
+                    flash_attention_bwd_cuda(q, k, v, o, lse, do, softmax_scale=hd ** -0.5)):
+        assert torch.equal(a, b)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    plain = [t.float().requires_grad_() for t in (q, k, v)]
+    (ops.flash_attention(*leaves, softmax_scale=ZAMBA2_SCALE).float() * do.float()).sum() \
+        .backward()
+    (flash_attention_plain(*plain, softmax_scale=ZAMBA2_SCALE) * do.float()).sum().backward()
+    for a, b in zip(leaves, plain):
+        assert _rel_err(a.grad, b.grad) < GRAD_TOL[dtype]
+
+
+def _ssd_grouped_inputs(dev, shape, G, la_kind, seed=24):
+    B, nc, Q, H, N, P = shape
+    rng = np.random.default_rng(seed)
+    z = rng.standard_normal((B, nc, Q, H))
+    la = {"model": -np.logaddexp(0.0, z), "mixed": z * 0.05}[la_kind]
+    shapes = ((B, nc, Q, G, N), (B, nc, Q, G, N), (B, nc, Q, H, P), (B, nc, Q, H, P),
+              (B, nc, H, P, N), (B, nc, H))
+    return [torch.from_numpy(a.astype(np.float32)).to(dev)
+            for a in (la, *(rng.standard_normal(s) for s in shapes))]
+
+
+SSD_GROUPED = [((1, 1, 16, 4, 8, 8), 2), ((1, 2, 40, 6, 4, 12), 3), ((2, 3, 128, 12, 64, 64), 4),
+               ((2, 2, 128, 112, 64, 64), 2), ((2, 16, 128, 112, 64, 64), 2)]
+
+
+@pytest.mark.parametrize("la_kind", ["model", "mixed"])
+@pytest.mark.parametrize("shape,G", SSD_GROUPED)
+def test_ssd_kernel_grouped_matches_float64_on_card(cuda_card, shape, G, la_kind):
+    """C and B in G groups (head h reads group h // (H/G)): one mma tile;
+    Q, N and P off the tiles; 4 groups of 3; Zamba2-7B's 2 groups of 56
+    heads (B 2 x S 4096 is 2 rows of 16 chunks of 128); held to the plain
+    version in float64 at the ungrouped kernel's tolerances."""
+    la, C, Bm, x = _ssd_grouped_inputs(cuda_card, shape, G, la_kind)[:4]
+    want = ssd_intra_chunk_plain(*(a.double() for a in (la, C, Bm, x)))
+    for got, w, tol in zip(ops.ssd_intra_chunk(la, C, Bm, x), want, SSD_TOLS):
+        torch.testing.assert_close(got, w.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("la_kind", ["model", "mixed"])
+@pytest.mark.parametrize("shape,G", SSD_GROUPED + [((1, 2, 17, 6, 16, 20), 2)])
+def test_ssd_bwd_kernel_grouped_matches_float64_on_card(cuda_card, shape, G, la_kind):
+    """dla, dC, dB (each group's summed over its own heads) and dx against
+    autograd through the plain forward in float64, within 1e-4 of each
+    output's max (Q 17 too, which only the backward takes); and two
+    head-block plans agree within 1e-6."""
+    args = _ssd_grouped_inputs(cuda_card, shape, G, la_kind)
+    got = ssd_intra_chunk_bwd_cuda(*args)
+    want = ssd_intra_chunk_bwd_plain(*(a.double() for a in args))
+    for name, g, w in zip(("dla", "dC", "dB", "dx"), got, want):
+        assert g.dtype == torch.float32 and g.shape == w.shape
+        assert _rel_err(g.double(), w) < GRAD_TOL["float32"], name
+    other = ssd_intra_chunk_bwd_cuda(*args, heads_per_group=max(1, shape[3] // G // 2))
+    for name, a, b in zip(("dla", "dC", "dB", "dx"), got, other):
+        assert _rel_err(a.double(), b.double()) < 1e-6, name
+
+
+@pytest.mark.parametrize("shape", [(2, 2, 128, 113, 64, 64), (1, 2, 40, 3, 4, 12),
+                                   (2, 4, 128, 112, 64, 64)])
+def test_ssd_one_group_gives_the_ungrouped_bits_on_card(cuda_card, shape):
+    """C and B as (B, nc, Q, 1, N) run the kernels exactly as (B, nc, Q, N)
+    does: every output of the forward and the backward bit for bit."""
+    args = _ssd_bwd_inputs(cuda_card, shape, "model", seed=25)
+    la, C, Bm, x = args[:4]
+    grouped = [la, C[:, :, :, None], Bm[:, :, :, None], x]
+    for a, b in zip(ops.ssd_intra_chunk(la, C, Bm, x), ops.ssd_intra_chunk(*grouped)):
+        assert torch.equal(a, b)
+    for a, b in zip(ssd_intra_chunk_bwd_cuda(*args),
+                    ssd_intra_chunk_bwd_cuda(*grouped, *args[4:])):
+        assert torch.equal(a.reshape(b.shape), b)
+
+
+def test_zamba2_smoke_trains_on_card_as_on_cpu(cuda_card):
+    """The smoke Zamba2-7B at head dim 64 (the kernels' smallest), float32,
+    one loss and every gradient on the card (flash with the passed scale, the
+    grouped SSD kernels and their backward, rmsnorm) against the CPU's plain
+    path from the same weights, within 1e-3 of each leaf's max|grad|."""
+    from repro_torch.configs.zamba2_7b_instruct import SMOKE
+    from repro_torch.models import build_model
+    model = build_model(SMOKE)
+    cpu = model.init(torch.Generator().manual_seed(0))
+    tok = torch.randint(0, SMOKE.vocab_size, (2, 96), generator=torch.Generator().manual_seed(1))
+    batch = {"tokens": tok, "labels": tok.roll(-1, 1)}
+    leaves = {}
+
+    def run(dev):
+        import torch.utils._pytree as pytree
+        params = pytree.tree_map(lambda t: t.to(dev).requires_grad_(), cpu)
+        loss, _ = model.loss(params, {k: v.to(dev) for k, v in batch.items()}, remat="full")
+        loss.backward()
+        leaves[dev.type] = pytree.tree_leaves(params)
+        return float(loss)
+    ops.reset_launches()
+    card = run(cuda_card)
+    assert ops.LAUNCHES["ssd_intra_chunk_bwd"] > 0 and ops.LAUNCHES["flash_attention_bwd"] > 0
+    assert card == pytest.approx(run(torch.device("cpu")), rel=1e-4)
+    for a, b in zip(leaves["cuda"], leaves["cpu"]):
+        assert _rel_err(a.grad.cpu(), b.grad) < 1e-3

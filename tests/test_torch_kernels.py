@@ -123,12 +123,13 @@ def test_decode_attention_plain_matches_pallas_hd256(kv_len, dtype):
 
 
 def test_head_dims_of_the_wrappers():
-    """hd 256 for the forward, decode and backward kernels (the wrappers
-    refuse any other head dim); on the CPU autograd through the plain
-    version takes any head dim."""
+    """hd 256 for the forward, decode and backward kernels, hd 224 for the
+    flash forward and backward only (the wrappers refuse any other head dim);
+    on the CPU autograd through the plain version takes any head dim."""
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
-    assert fa.HEAD_DIMS == da.HEAD_DIMS == (64, 112, 128, 256)
+    assert fa.HEAD_DIMS == (64, 112, 128, 224, 256)
+    assert da.HEAD_DIMS == (64, 112, 128, 256)
     assert fa.BWD_HEAD_DIMS == fa.HEAD_DIMS
     q = torch.randn(1, 8, 2, 256, requires_grad=True)
     tops.flash_attention(q, q.detach(), q.detach()).sum().backward()
@@ -264,7 +265,9 @@ def test_ssd_contract_errors(shape, match):
 
 def test_ssd_contract_types_layouts_and_edges():
     """float64, mismatched and non-contiguous inputs raise; the edge shapes
-    the kernel pads (Q 16 with N = P = 8; Q 40, N 4, P 12; Q 128) pass."""
+    the kernel pads (Q 16 with N = P = 8; Q 40, N 4, P 12; Q 128) pass, as
+    one group, and C and B in 2 groups of 56 heads; 3 groups of 112 heads
+    raise."""
     from repro_torch.kernels.ssd_scan import check_inputs
 
     def make(B, nc, Q, H, N, P, dtype=torch.float32):
@@ -280,7 +283,15 @@ def test_ssd_contract_types_layouts_and_edges():
     with pytest.raises(ValueError, match="contiguous"):
         check_inputs(la, C, Bm, x.transpose(3, 4).contiguous().transpose(3, 4))
     for shape in ((1, 1, 16, 1, 8, 8), (1, 2, 40, 3, 4, 12), (2, 2, 128, 113, 64, 64)):
-        assert check_inputs(*make(*shape)) == shape
+        B, nc, Q, H, N, P = shape
+        assert check_inputs(*make(*shape)) == (B, nc, Q, H, 1, N, P)
+    # C and B in groups: (B, nc, Q, G, N), G dividing H
+    la, _, _, x = make(2, 2, 128, 112, 64, 64)
+    grouped = torch.zeros((2, 2, 128, 2, 64))
+    assert check_inputs(la, grouped, grouped, x) == (2, 2, 128, 112, 2, 64, 64)
+    with pytest.raises(ValueError, match="do not match"):
+        odd = torch.zeros((2, 2, 128, 3, 64))
+        check_inputs(la, odd, odd, x)
 
 
 def test_heads_per_block_bounds():
@@ -403,7 +414,8 @@ def _c_params(source: str, fn: str) -> list[tuple[str, str]]:
 
 def _ctype(c_type: str):
     import ctypes
-    return ctypes.c_void_p if c_type.endswith("*") else {"int": ctypes.c_int}[c_type]
+    return ctypes.c_void_p if c_type.endswith("*") else {"int": ctypes.c_int,
+                                                         "double": ctypes.c_double}[c_type]
 
 
 @pytest.mark.parametrize("source,fn,module", [

@@ -4,7 +4,9 @@ open on any thread, ``tally`` adds to the innermost, and ``record`` leaves
 the off state behind even when its block raises. A smoke phi4-mini train
 step under remat "full" records its phases (forward, each layer and its
 recompute, the head, backward, the optimizer and its clip), and recording
-changes no bit of the state. The loader's span counts the bytes it read
+changes no bit of the state; a smoke Zamba2-7B step records its SSD and
+shared-block spans inside its layers, with their counters. The loader's span
+counts the bytes it read
 through the file system. Under a profiler that records host activity, each
 span's ``record_function`` event lies inside the span once the recorded
 clock offset is applied."""
@@ -149,6 +151,35 @@ def test_train_step_records_its_phases_and_recording_changes_no_bit():
     assert {_chain(rec, i)[-1] for i in range(len(rec.spans))} == \
         {"step.forward", "step.backward", "step.optimizer"}
     assert len(rec.spans) == 2 * (4 + 2 * L + 1)
+
+
+def test_zamba2_step_records_the_ssd_and_the_shared_sites():
+    """A smoke Zamba2-7B train step under remat "full": each layer's
+    ``mamba.ssd`` and each site's ``zamba2.shared`` open inside its
+    ``model.layer``, once in ``step.forward`` and once again in the recompute
+    inside ``step.backward``; ``tally`` counts the 4 sites and the chunks
+    scanned a step (2 rows of 64 tokens in chunks of 32 a layer)."""
+    from repro_torch.configs.zamba2_7b_instruct import SMOKE
+    model = build_model(SMOKE)
+    rt = RuntimeConfig(remat="full", schedule="constant", opt=AdamWConfig(lr=1e-3))
+    state = make_train_state(model, torch.Generator().manual_seed(1), rt)
+    tokens = torch.randint(0, SMOKE.vocab_size, (2, 65), generator=torch.Generator().manual_seed(0))
+    step = make_train_step(model, rt)
+    with spans.record() as rec:
+        state, _ = step(state, {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]})
+
+    def count(name, phase, field=None):
+        return sum((s.fields or {}).get(field, 0) if field else 1
+                   for i, s in enumerate(rec.spans)
+                   if s.name == name and _chain(rec, i)[1] == "model.layer"
+                   and _chain(rec, i)[-1] == phase)
+    L, sites = SMOKE.n_layers, len(SMOKE.hybrid_layer_ids)
+    for phase in ("step.forward", "step.backward"):
+        assert count("mamba.ssd", phase) == L
+        assert count("zamba2.shared", phase) == sites == 4
+        assert count("zamba2.shared", phase, "sites") == 4
+        assert count("mamba.ssd", phase, "chunks") == L * 2 * (64 // SMOKE.ssm_chunk)
+    assert sum(1 for s in rec.spans if s.name in ("mamba.ssd", "zamba2.shared")) == 2 * (L + 4)
 
 
 def test_loader_span_counts_the_bytes_it_read():

@@ -160,7 +160,7 @@ def main() -> int:
         err = lib.flash_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
             lse.data_ptr(), D.data_ptr(), dq_acc.data_ptr(), sem.data_ptr(),
-            *(t.data_ptr() for t in outs), B, S, S, H, K, hd, 1, -1, 1, stream)
+            *(t.data_ptr() for t in outs), B, S, S, H, K, hd, 1, -1, 1, hd ** -0.5, stream)
         if err:
             raise RuntimeError(f"flash_attention_bwd: CUDA error {err}")
 

@@ -182,7 +182,7 @@ def main() -> int:
         dla, dC, dB, dx = outs
         err = lib.ssd_intra_chunk_bwd(*(t.data_ptr() for t in ins),
                                       *(t.data_ptr() for t in (dla, dx, dC, dB, *scratch)),
-                                      BC, Q, H, N, P, hg, stream)
+                                      BC, Q, H, 1, N, P, hg, stream)
         if err:
             raise RuntimeError(f"ssd_intra_chunk_bwd: CUDA error {err}")
 

@@ -29,6 +29,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
+import math
 import os
 import subprocess
 import sys
@@ -43,7 +44,7 @@ BWD_SHAPES = {"phi4-mini-3.8b train": (4, 2048, 2048, 24, 8, 128, True),
               "gemma3-12b global train": (4, 2048, 2048, 16, 8, 256, True),
               "whisper-tiny encoder train": (4, 1500, 1500, 6, 6, 64, False),
               "whisper-tiny cross train": (4, 448, 1500, 6, 6, 64, False)}
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 
 
 def build(paths: list[str]) -> list[str]:
@@ -84,17 +85,20 @@ def main() -> int:
     for src, so in zip(args.sources, build(args.sources)):
         text = open(src).read()
         lib = ctypes.CDLL(so)
+        # with or without the softmax scale argument (since hd 224)
+        with_scale = "double scale" in text
         if args.bwd:
             # with or without the counters that order dq's additions
             with_ptr = "void* sem" in text
-            lib.flash_attention_bwd.argtypes = (_BWD_SIGNATURES["flash_attention_bwd"]
-                                                [(0 if with_ptr else 1):])
+            lib.flash_attention_bwd.argtypes = ([_P] * (12 if with_ptr else 11) + [_I] * 9
+                                                + [_D] * with_scale + [_P])
             lib.flash_attention_bwd.restype = ctypes.c_int
         else:
             with_ptr = "void* lse" in text
-            lib.flash_attention_fwd.argtypes = [_P] * (5 if with_ptr else 4) + [_I] * 9 + [_P]
+            lib.flash_attention_fwd.argtypes = ([_P] * (5 if with_ptr else 4) + [_I] * 9
+                                                + [_D] * with_scale + [_P])
             lib.flash_attention_fwd.restype = ctypes.c_int
-        variants.append((lib, with_ptr))
+        variants.append((lib, with_ptr, with_scale))
     stream = torch.cuda.current_stream(dev).cuda_stream
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip().splitlines()[0]
@@ -103,11 +107,12 @@ def main() -> int:
                         flash_attention_bwd_plain, bwd_sem_count)
 
     def launch(variant, q, k, v, o):
-        lib, with_lse = variant
+        lib, with_lse, with_scale = variant
         B, S, H, hd = q.shape
         K = k.shape[2]
         ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr()] + [None] * with_lse
-        err = lib.flash_attention_fwd(*ptrs, B, S, S, H, K, hd, 1, -1, 1, stream)
+        err = lib.flash_attention_fwd(*ptrs, B, S, S, H, K, hd, 1, -1, 1,
+                                      *[1.0 / math.sqrt(hd)] * with_scale, stream)
         if err:
             raise RuntimeError(f"flash_attention_fwd: CUDA error {err}")
 
@@ -169,12 +174,13 @@ def time_bwd(args, torch, dev, variants, stream, smi, flash_fwd, bwd_plain, sem_
                 torch.empty_like(k), torch.empty_like(v)]
 
         def launch(i, _k):
-            lib, with_sem = variants[i]
+            lib, with_sem, with_scale = variants[i]
             err = lib.flash_attention_bwd(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
                 lse.data_ptr(), D.data_ptr(), dq_acc.data_ptr(),
                 *([sem.data_ptr()] if with_sem else []), *(t.data_ptr() for t in outs),
-                B, S, T, H, K, hd, int(causal), -1, int(dtype == torch.bfloat16), stream)
+                B, S, T, H, K, hd, int(causal), -1, int(dtype == torch.bfloat16),
+                *[1.0 / math.sqrt(hd)] * with_scale, stream)
             if err:
                 raise RuntimeError(f"flash_attention_bwd: CUDA error {err}")
 

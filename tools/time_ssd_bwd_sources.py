@@ -73,15 +73,18 @@ def main() -> int:
     import torch.nn.functional as F
 
     from repro_torch.device import resolve_device
-    from repro_torch.kernels.ssd_scan import (_BWD_SIGNATURES, bwd_heads_per_block,
-                                              ssd_intra_chunk_bwd_plain)
+    from repro_torch.kernels.ssd_scan import bwd_heads_per_block, ssd_intra_chunk_bwd_plain
     dev = resolve_device("cuda")
     sources = args.sources
     sos, reports = build(sources)
     libs = []
-    for so in sos:
+    for src, so in zip(sources, sos):
         lib = ctypes.CDLL(so)
-        lib.ssd_intra_chunk_bwd.argtypes = _BWD_SIGNATURES["ssd_intra_chunk_bwd"]
+        # with or without the B/C groups argument (one group here)
+        lib.grouped = "int G," in open(src).read()
+        lib.ssd_intra_chunk_bwd.argtypes = ([ctypes.c_void_p] * 13
+                                            + [ctypes.c_int] * (6 + lib.grouped)
+                                            + [ctypes.c_void_p])
         lib.ssd_intra_chunk_bwd.restype = ctypes.c_int
         libs.append(lib)
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -111,7 +114,7 @@ def main() -> int:
         dla, dC, dB, dx, pdcb, pdbh = outs
         err = lib.ssd_intra_chunk_bwd(*(t.data_ptr() for t in ins),
                                       *(t.data_ptr() for t in (dla, dx, dC, dB, pdcb, pdbh)),
-                                      Bs * nc, Q, H, N, P, hg, stream)
+                                      Bs * nc, Q, H, *[1] * lib.grouped, N, P, hg, stream)
         if err:
             raise RuntimeError(f"ssd_intra_chunk_bwd: CUDA error {err}")
 

@@ -58,12 +58,16 @@ def main() -> int:
     import torch
 
     from repro_torch.device import resolve_device
-    from repro_torch.kernels.ssd_scan import _SIGNATURES, heads_per_block, ssd_intra_chunk_plain
+    from repro_torch.kernels.ssd_scan import heads_per_block, ssd_intra_chunk_plain
     dev = resolve_device("cuda")
     libs = []
-    for so in build(args.sources):
+    for src, so in zip(args.sources, build(args.sources)):
         lib = ctypes.CDLL(so)
-        lib.ssd_intra_chunk_fwd.argtypes = _SIGNATURES["ssd_intra_chunk_fwd"]
+        # with or without the B/C groups argument (one group here)
+        lib.grouped = "int G," in open(src).read()
+        lib.ssd_intra_chunk_fwd.argtypes = ([ctypes.c_void_p] * 7
+                                            + [ctypes.c_int] * (6 + lib.grouped)
+                                            + [ctypes.c_void_p])
         lib.ssd_intra_chunk_fwd.restype = ctypes.c_int
         libs.append(lib)
 
@@ -85,7 +89,8 @@ def main() -> int:
 
     def launch(lib, ins, outs, shape):
         Bs, nc, Q, H, N, P = shape
-        err = lib.ssd_intra_chunk_fwd(*(t.data_ptr() for t in ins + outs), Bs * nc, Q, H, N, P,
+        err = lib.ssd_intra_chunk_fwd(*(t.data_ptr() for t in ins + outs), Bs * nc, Q, H,
+                                      *[1] * lib.grouped, N, P,
                                       heads_per_block(Bs * nc, H, n_sm), stream)
         if err:
             raise RuntimeError(f"ssd_intra_chunk_fwd: CUDA error {err}")

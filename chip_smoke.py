@@ -24,7 +24,11 @@ Phases, each printing one JSON line to stdout:
              a stacked layer leaf and ragged tails, gradient and param in bf16
              and in float32; Zamba2-7B's training shapes (B 2 x S 4096): the
              flash forward and backward at hd 224 with its (hd/2)^-1/2 scale,
-             and both SSD kernels with C and B in 2 groups of 56 heads.
+             and both SSD kernels with C and B in 2 groups of 56 heads; the
+             causal conv with its bias and SiLU (``causal_conv_silu`` and its
+             backward) at Zamba2-7B's training xBC (a slice of in_proj's
+             output), xlstm-1.3b's training x_in and a ragged shape, held to
+             float64 (2e-2 / 2e-5 forward, 2e-2 / 1e-4 of max|grad| backward).
              Kernel, plain and one-PyTorch-call (``library_ms``, a
              yardstick the port never calls; autograd through it for a
              backward) times, inputs and outputs rotated over copies so
@@ -141,6 +145,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -312,6 +317,9 @@ def kernel_cases(torch):
     shape; ``dtypes`` and ``tols`` where the defaults do not hold."""
     from repro_torch.kernels.adamw import (
         adamw_plain, adamw_triton, grad_sumsq_plain, grad_sumsq_triton)
+    from repro_torch.kernels.causal_conv import (
+        causal_conv_silu_bwd_plain, causal_conv_silu_bwd_triton, causal_conv_silu_plain,
+        causal_conv_silu_triton)
     from repro_torch.kernels.decode_attention import (
         decode_attention_cuda, decode_attention_plain)
     from repro_torch.kernels.flash_attention import (
@@ -753,6 +761,51 @@ def kernel_cases(torch):
             oracle=lambda a: a["g"].double().square().sum(),
             library=lambda a: torch.linalg.vector_norm(a["g"], dtype=torch.float32),
             nbytes=lambda isz, n=n: isz * n, flops={"float32": 2 * n}, main=main))
+
+    # the causal conv with its bias and SiLU, W 4: Zamba2-7B's training xBC
+    # (the slice of in_proj's (2, 4096, 14704) output after z's 7168
+    # channels), xlstm-1.3b's training x_in (the first half of (4, 2048,
+    # 8192)) and a ragged shape; forward and backward held to the plain
+    # versions run in float64. Library: the path the kernels replace (the
+    # transposing pad, F.conv1d, the bias, F.silu), which is also the plain
+    # forward; for the backward, autograd through it.
+    for (Bs, S, Ch, width, first), main in [((Z7_B, Z7_S, 7424, 14704, 7168), Z7),
+                                            ((TRAIN_B, TRAIN_S, 4096, 8192, 0), XL_TRAIN),
+                                            ((2, 77, 200, 520, 8), None)]:
+        def make(dtype, grads, Bs=Bs, S=S, Ch=Ch, width=width, first=first):
+            g = torch.Generator(device=dev).manual_seed(9)
+            a = {"x": randn(g, (Bs, S, width), dtype)[..., first:first + Ch],
+                 "w": randn(g, (4, Ch), dtype) * 0.5, "b": randn(g, (Ch,), dtype) * 0.1}
+            if grads:
+                a["dy"] = randn(g, (Bs, S, Ch), dtype)
+                a["leaves"] = tuple(a[k].detach().requires_grad_() for k in "xwb")
+                a["lout"] = causal_conv_silu_plain(*a["leaves"])
+            return a
+        n = Bs * S * Ch
+        desc = {"B": Bs, "S": S, "Ch": Ch, "row": width, "W": 4}
+        cases.append(dict(
+            kernel="causal_conv_silu", desc=desc, make=functools.partial(make, grads=False),
+            run=lambda a: causal_conv_silu_triton(a["x"], a["w"], a["b"]),
+            plain=lambda a: causal_conv_silu_plain(a["x"], a["w"], a["b"]),
+            oracle=lambda a: causal_conv_silu_plain(*(a[k].double() for k in "xwb")),
+            library=lambda a: causal_conv_silu_plain(a["x"], a["w"], a["b"]),
+            # x read, y written; w and b read
+            nbytes=lambda isz, n=n, Ch=Ch: isz * (2 * n + 5 * Ch),
+            # 4 taps and the bias, the sigmoid and the product
+            flops={"float32": 13 * n}, main=main))
+        cases.append(dict(
+            kernel="causal_conv_silu_bwd", desc=desc, make=functools.partial(make, grads=True),
+            grads=True,
+            run=lambda a: causal_conv_silu_bwd_triton(a["x"], a["w"], a["b"], a["dy"]),
+            plain=lambda a: causal_conv_silu_bwd_plain(a["x"], a["w"], a["b"], a["dy"]),
+            oracle=lambda a: causal_conv_silu_bwd_plain(*(a[k].double() for k in "xwb"),
+                                                        a["dy"].double()),
+            library=lambda a: torch.autograd.grad(a["lout"], a["leaves"], a["dy"],
+                                                  retain_graph=True),
+            # x and dy read, dx written; w and b read, dw and db written
+            nbytes=lambda isz, n=n, Ch=Ch: isz * (3 * n + 10 * Ch),
+            # u again, the sigmoid and du, dx's and dw's 4 taps, db
+            flops={"float32": 31 * n}, main=main))
     return cases
 
 
@@ -816,21 +869,28 @@ def _xlstm_norms(cfg) -> int:
     return 3 * nb + 2 * nb * (cfg.slstm_period - 1) + 1
 
 
+def _xlstm_mlstm_layers(cfg) -> int:
+    return cfg.n_layers // cfg.slstm_period * (cfg.slstm_period - 1)
+
+
 def expected_launches(cfg, gen: int) -> dict:
     """One prefill and gen - 1 decode steps. Dense and MoE: flash L per prefill,
     decode L per step, rmsnorm 2L + 1 layer norms (and 2L qk-norms) per
     forward. Hybrid (ng shared-block sites): flash ng per prefill, decode ng
-    per step, rmsnorm 2L + 2ng + 1 per forward, ssd L per prefill. xLSTM:
-    rmsnorm only (``_xlstm_norms`` a forward). Whisper (E encoder layers, L
+    per step, rmsnorm 2L + 2ng + 1 per forward, ssd and the causal conv L
+    per prefill. xLSTM: rmsnorm (``_xlstm_norms`` a forward) and the mLSTM
+    layers' causal conv per prefill. Whisper (E encoder layers, L
     decoder layers): the encoder once, its 2E norms and enc_norm, flash E;
     each decoder forward 3L + 1 norms; flash 2L at the prefill (self and
     cross), decode 2L a step."""
     L = cfg.n_layers
     bwd = {"rmsnorm_bwd": 0, "flash_attention_bwd": 0, "ssd_intra_chunk_bwd": 0, "adamw": 0,
-           "grad_sumsq": 0}                        # training's kernels
-    none = {"flash_attention": 0, "decode_attention": 0, "ssd_intra_chunk": 0}
+           "grad_sumsq": 0, "causal_conv_silu_bwd": 0}          # training's kernels
+    none = {"flash_attention": 0, "decode_attention": 0, "ssd_intra_chunk": 0,
+            "causal_conv_silu": 0}
     if cfg.family == "ssm":
-        return {**none, "rmsnorm": _xlstm_norms(cfg) * gen, **bwd}
+        return {**none, "rmsnorm": _xlstm_norms(cfg) * gen, **bwd,
+                "causal_conv_silu": _xlstm_mlstm_layers(cfg)}
     if cfg.family == "audio":
         E = cfg.encoder_layers
         return {**none, "rmsnorm": 2 * E + 1 + (3 * L + 1) * gen, "flash_attention": E + 2 * L,
@@ -838,9 +898,11 @@ def expected_launches(cfg, gen: int) -> dict:
     if cfg.family == "hybrid":
         ng = L // cfg.shared_attn_every
         return {"rmsnorm": (2 * L + 2 * ng + 1) * gen, "flash_attention": ng,
-                "decode_attention": ng * (gen - 1), "ssd_intra_chunk": L, **bwd}
+                "decode_attention": ng * (gen - 1), "ssd_intra_chunk": L,
+                "causal_conv_silu": L, **bwd}
     return {"rmsnorm": ((2 + 2 * cfg.qk_norm) * L + 1) * gen, "flash_attention": L,
-            "decode_attention": L * (gen - 1), "ssd_intra_chunk": 0, **bwd}
+            "decode_attention": L * (gen - 1), "ssd_intra_chunk": 0, "causal_conv_silu": 0,
+            **bwd}
 
 
 def optimizer_leaves(cfg) -> int:
@@ -865,29 +927,34 @@ def expected_train_launches(cfg, steps: int, evals: int, remat: bool, leaves: in
     outside the remat. Hybrid (ng shared-block sites, the shared block not
     wrapped, as ``repro``'s): per mamba layer 2 norms (its own and the
     mixer's gated one) and one SSD intra-chunk block; per site 2 norms (and
-    2 qk-norms) and one attention; plus the final norm. xLSTM (the mLSTM
-    layers wrapped, the sLSTM blocks not, as ``repro``'s): 2 norms an mLSTM
-    layer, 3 a sLSTM block, the final norm. Whisper (every encoder and
+    2 qk-norms) and one attention; plus the final norm. The hybrid's mamba
+    layers and the xLSTM's mLSTM layers: one causal conv launch a forward
+    (so two a train step under remat) and one conv backward a step. xLSTM
+    (the mLSTM layers wrapped, the sLSTM blocks not, as ``repro``'s): 2
+    norms an mLSTM layer, 3 a sLSTM block, the final norm. Whisper (every encoder and
     decoder layer wrapped): 2 norms and one attention an encoder layer, 3
     norms and two attentions a decoder layer, enc_norm and the final norm
     outside."""
     fwd = 2 if remat else 1
     opt = {"adamw": steps * leaves, "grad_sumsq": steps * leaves}
+    no_conv = {"causal_conv_silu": 0, "causal_conv_silu_bwd": 0}
     if cfg.family == "ssm":
-        nb = cfg.n_layers // cfg.slstm_period
-        m_norms = 2 * nb * (cfg.slstm_period - 1)
+        m = _xlstm_mlstm_layers(cfg)
+        m_norms = 2 * m
         once = _xlstm_norms(cfg) - m_norms
         return {"rmsnorm": steps * (once + m_norms * fwd) + evals * (once + m_norms),
                 "flash_attention": 0, "decode_attention": 0, "ssd_intra_chunk": 0,
                 "rmsnorm_bwd": steps * (once + m_norms), "flash_attention_bwd": 0,
-                "ssd_intra_chunk_bwd": 0, **opt}
+                "ssd_intra_chunk_bwd": 0, "causal_conv_silu": (steps * fwd + evals) * m,
+                "causal_conv_silu_bwd": steps * m, **opt}
     if cfg.family == "audio":
         E, L = cfg.encoder_layers, cfg.n_layers
         norms, attn = 2 * E + 3 * L, E + 2 * L
         return {"rmsnorm": steps * (norms * fwd + 2) + evals * (norms + 2),
                 "flash_attention": (steps * fwd + evals) * attn, "decode_attention": 0,
                 "ssd_intra_chunk": 0, "rmsnorm_bwd": steps * (norms + 2),
-                "flash_attention_bwd": steps * attn, "ssd_intra_chunk_bwd": 0, **opt}
+                "flash_attention_bwd": steps * attn, "ssd_intra_chunk_bwd": 0, **no_conv,
+                **opt}
     if cfg.family == "hybrid":
         L = cfg.n_layers
         ng = L // cfg.shared_attn_every
@@ -896,12 +963,14 @@ def expected_train_launches(cfg, steps: int, evals: int, remat: bool, leaves: in
                 "flash_attention": (steps + evals) * ng, "decode_attention": 0,
                 "ssd_intra_chunk": steps * L * fwd + evals * L,
                 "rmsnorm_bwd": steps * (2 * L + site), "flash_attention_bwd": steps * ng,
-                "ssd_intra_chunk_bwd": steps * L, **opt}
+                "ssd_intra_chunk_bwd": steps * L,
+                "causal_conv_silu": steps * L * fwd + evals * L,
+                "causal_conv_silu_bwd": steps * L, **opt}
     L, n = cfg.n_layers, 2 + 2 * cfg.qk_norm
     return {"rmsnorm": steps * (n * L * fwd + 1) + evals * (n * L + 1),
             "flash_attention": steps * L * fwd + evals * L, "decode_attention": 0,
             "ssd_intra_chunk": 0, "rmsnorm_bwd": steps * (n * L + 1),
-            "flash_attention_bwd": steps * L, "ssd_intra_chunk_bwd": 0, **opt}
+            "flash_attention_bwd": steps * L, "ssd_intra_chunk_bwd": 0, **no_conv, **opt}
 
 
 def model_inputs(torch, cfg, B: int, dev, seeded: bool = False) -> dict:
@@ -1806,6 +1875,10 @@ SOURCES = {
               "src/repro/optim/adamw.py:51 (plain JAX, no TPU kernel)", PHI),
     "grad_sumsq": ("triton", "src/repro_torch/kernels/adamw.py",
                    "src/repro/optim/adamw.py:45 (plain JAX, no TPU kernel)", PHI),
+    "causal_conv_silu": ("triton", "src/repro_torch/kernels/causal_conv.py",
+                         "src/repro/models/mamba2.py:48 (plain JAX, no TPU kernel)", Z7),
+    "causal_conv_silu_bwd": ("triton", "src/repro_torch/kernels/causal_conv.py",
+                             "src/repro/models/mamba2.py:48 (plain JAX, no TPU kernel)", Z7),
 }
 TIMES = ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
          "library_device_ms")

@@ -9,11 +9,12 @@ launches the kernel and nowhere else, so a run can show that its path went
 through every kernel (``reset_launches()`` before, read after).
 
 Training: where autograd needs a gradient of ``rmsnorm``,
-``flash_attention`` or ``ssd_intra_chunk`` on the card, the call goes
-through a ``torch.autograd.Function`` whose forward launches the forward
-kernel (which also writes what the backward reads: each row's ``inv``, or
-its log-sum-exp) and whose backward launches the backward kernel
-(``rmsnorm_bwd``, ``flash_attention_bwd``, ``ssd_intra_chunk_bwd``).
+``flash_attention``, ``ssd_intra_chunk`` or ``causal_conv_silu`` on the
+card, the call goes through a ``torch.autograd.Function`` whose forward
+launches the forward kernel (which also writes what the backward reads:
+each row's ``inv``, or its log-sum-exp) and whose backward launches the
+backward kernel (``rmsnorm_bwd``, ``flash_attention_bwd``,
+``ssd_intra_chunk_bwd``, ``causal_conv_silu_bwd``).
 Without a gradient (``inference_mode``, serving) the forward kernels launch
 exactly as before. On the CPU autograd runs through the plain versions.
 
@@ -36,6 +37,11 @@ import torch
 from torch.distributed.tensor import DTensor
 
 from .adamw import adamw_plain, adamw_triton, grad_sumsq_plain, grad_sumsq_triton
+from .causal_conv import (
+    causal_conv_silu_bwd_triton,
+    causal_conv_silu_plain,
+    causal_conv_silu_triton,
+)
 from .decode_attention import decode_attention_cuda, decode_attention_plain
 from .flash_attention import (
     flash_attention_bwd_cuda,
@@ -47,7 +53,8 @@ from . import sharded
 from .ssd_scan import ssd_intra_chunk_bwd_cuda, ssd_intra_chunk_cuda, ssd_intra_chunk_plain
 
 KERNELS = ("rmsnorm", "flash_attention", "decode_attention", "ssd_intra_chunk",
-           "rmsnorm_bwd", "flash_attention_bwd", "ssd_intra_chunk_bwd", "adamw", "grad_sumsq")
+           "rmsnorm_bwd", "flash_attention_bwd", "ssd_intra_chunk_bwd", "adamw", "grad_sumsq",
+           "causal_conv_silu", "causal_conv_silu_bwd")
 LAUNCHES: dict[str, int] = dict.fromkeys(KERNELS, 0)
 
 
@@ -127,6 +134,25 @@ class _SSDIntraChunk(torch.autograd.Function):
         return grads
 
 
+class _CausalConvSiLU(torch.autograd.Function):
+    """The Triton forward saving only its inputs; the Triton backward, which
+    recomputes the conv from x."""
+
+    @staticmethod
+    def forward(ctx, x, w, b):
+        out = causal_conv_silu_triton(x, w, b)
+        LAUNCHES["causal_conv_silu"] += 1
+        ctx.save_for_backward(x, w, b)
+        return out
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w, b = ctx.saved_tensors
+        grads = causal_conv_silu_bwd_triton(x, w, b, dy if dy.stride(-1) == 1 else dy.contiguous())
+        LAUNCHES["causal_conv_silu_bwd"] += 1
+        return grads
+
+
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-5) -> torch.Tensor:
     """y = x * rsqrt(mean(x^2, -1) + eps) * scale; x: (..., d), scale: (d,)."""
     if isinstance(x, DTensor):
@@ -192,6 +218,20 @@ def ssd_intra_chunk(la: torch.Tensor, C: torch.Tensor, B_in: torch.Tensor, x: to
         return _SSDIntraChunk.apply(la, C, B_in, x)
     out = ssd_intra_chunk_cuda(la, C, B_in, x)
     LAUNCHES["ssd_intra_chunk"] += 1
+    return out
+
+
+def causal_conv_silu(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """silu(depthwise causal conv(x, w) + b): x (B, S, Ch), any row stride on
+    the card; w (W, Ch); b (Ch,) -> (B, S, Ch) contiguous, in x's dtype."""
+    if isinstance(x, DTensor):
+        return sharded.depthwise_conv(x, w, b, local=causal_conv_silu)
+    if not _on_cuda(x, "causal_conv_silu"):
+        return causal_conv_silu_plain(x, w, b)
+    if _wants_grad(x, w, b):
+        return _CausalConvSiLU.apply(x, w, b)
+    out = causal_conv_silu_triton(x, w, b)
+    LAUNCHES["causal_conv_silu"] += 1
     return out
 
 

@@ -65,6 +65,8 @@ CATEGORIES = (
     ("decode_attention", re.compile(r"decode_(split|combine)_kernel")),
     ("rmsnorm", re.compile(r"rmsnorm_kernel")),
     ("ssd_intra_chunk", re.compile(r"ssd_intra_chunk_kernel")),
+    ("causal_conv_silu_bwd", re.compile(r"causal_conv_silu_(bwd|dwdb)_kernel")),
+    ("causal_conv_silu", re.compile(r"causal_conv_silu_fwd_kernel")),
     ("matmul", re.compile(r"gemm|gemv|cutlass|xmma|nvjet|cublas", re.I)),
     ("sort_topk", re.compile(r"sort|topk", re.I)),
     ("gather_scatter_index", re.compile(r"scatter|gather|index|scan", re.I)),

@@ -9,9 +9,12 @@ with a_t = exp(dt_t * A), A = -exp(A_log) < 0. B and C come in ``ssm_groups``
 groups (Mamba2's n_groups; head h reads group h // (H/G)), and the gated
 norm after the scan normalises each group's d_inner / G channels apart.
 
-The intra-chunk block goes through ``kernels.ops.ssd_intra_chunk`` (the CUDA
-kernel on the card, its plain version on the CPU; under autograd on the card
-its backward kernel too); the inter-chunk scan (``carry_states``) is, in
+The causal conv with its bias and SiLU goes through
+``kernels.ops.causal_conv_silu`` and the intra-chunk block through
+``kernels.ops.ssd_intra_chunk`` (the Triton and CUDA kernels on the card,
+reading the conv's input in place in the ``in_proj`` output; their plain
+versions on the CPU; under autograd on the card their backward kernels
+too); the inter-chunk scan (``carry_states``) is, in
 training, one product with the chunks' decays for each block of up to 64
 chunks, and otherwise a loop over the chunks. Two
 differences from ``repro``: the prefill form also returns the layer's decode
@@ -31,6 +34,7 @@ from torch.distributed.tensor import DTensor
 from ..configs.base import ModelConfig
 from ..hints import constrain
 from ..kernels import ops, sharded
+from ..kernels.causal_conv import causal_conv_plain
 from ..precision import compute_dtype, widen
 from ..spans import span, tally
 from .layers import dense, dense_init, norm
@@ -77,10 +81,14 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Ten
     channel shards (``kernels.sharded.depthwise_conv``)."""
     if isinstance(x, DTensor):
         return sharded.depthwise_conv(x, w, b, local=_causal_conv)
-    W = w.shape[0]
-    xp = F.pad(x.transpose(1, 2), (W - 1, 0))
-    out = F.conv1d(xp, w.t().unsqueeze(1), groups=x.shape[-1])
-    return (out.transpose(1, 2) + b).contiguous()
+    return causal_conv_plain(x, w, b)
+
+
+def conv_tail_of(x: torch.Tensor, W: int) -> torch.Tensor:
+    """The decode state's last W-1 conv inputs of x (B, S, Ch): a slice of x,
+    left-padded with the zeros the causal conv pads with where S < W-1."""
+    S = x.shape[1]
+    return x[:, S - (W - 1):] if S >= W - 1 else F.pad(x, (0, 0, W - 1 - S, 0))
 
 
 def ssd_chunked(x, dt, A, B_in, C_in, Q: int, h0=None):
@@ -206,10 +214,8 @@ def mamba_forward(p, x: torch.Tensor, cfg: ModelConfig, *, cache: MambaCache | N
     z, xBC, dt_raw = torch.split(zxbcdt, [di, di + 2 * G * N, H], dim=-1)
 
     if cache is None:
-        # the last W-1 conv inputs, left-padded with the zeros _causal_conv
-        # pads with when the prompt is shorter than W-1
-        conv_tail = F.pad(xBC, (0, 0, max(0, W - 1 - S), 0))[:, -(W - 1):, :]
-        xBC = F.silu(_causal_conv(xBC, p["conv_w"], p["conv_b"]))
+        conv_tail = conv_tail_of(xBC, W)
+        xBC = ops.causal_conv_silu(xBC, p["conv_w"], p["conv_b"])
     else:
         if S != 1:
             raise ValueError(f"decode takes one token per sequence, got S={S}")

@@ -8,7 +8,8 @@ mLSTM and the max trick for the sLSTM's exponential input gate. Neither has
 a kernel of its own (``repro`` has none): both are PyTorch ops and cuBLAS
 products, in float32 (float64 for float64 inputs, ``precision.widen``), as
 ``repro`` computes them; the norms go through ``layers.norm`` (the rmsnorm
-kernel on the card).
+kernel on the card) and the mLSTM's causal conv with its SiLU through
+``kernels.ops.causal_conv_silu`` (the conv kernel on the card).
 
 Three differences from ``repro``: the prefill forms also return the layer's
 decode state (``repro``'s ``xlstm_model.prefill`` recomputes the mLSTM's
@@ -31,11 +32,11 @@ from torch.distributed.tensor import DTensor
 
 from ..configs.base import ModelConfig
 from ..hints import constrain
-from ..kernels import sharded
+from ..kernels import ops, sharded
 from ..precision import compute_dtype, widen
 from .attention import split_heads
 from .layers import dense, dense_init, norm
-from .mamba2 import _causal_conv
+from .mamba2 import conv_tail_of
 
 _LOG_ZERO = -1e30            # log of an absent gate / the empty state's m
 
@@ -221,8 +222,8 @@ def mlstm_forward(p, x: torch.Tensor, cfg: ModelConfig, *, cache: MLSTMCache | N
     x_in, z = dense(p["in_proj"], x).chunk(2, dim=-1)
 
     if cache is None:
-        conv_tail = F.pad(x_in, (0, 0, max(0, W - 1 - S), 0))[:, -(W - 1):, :]
-        cx = F.silu(_causal_conv(x_in, p["conv_w"], p["conv_b"]))
+        conv_tail = conv_tail_of(x_in, W)
+        cx = ops.causal_conv_silu(x_in, p["conv_w"], p["conv_b"])
         carry = None
     else:
         if S != 1:

@@ -31,7 +31,11 @@ each kernel a leaf, no host sync, and the clip's norm repeating bit for bit;
 Zamba2-7B's head dim 224 with its (hd/2)^-1/2 scale passed to the flash
 forward and backward, the default scale's bits, the grouped SSD forward and
 backward against float64 with one group giving the ungrouped bits, and the
-smoke Zamba2 trained on the card against the CPU.
+smoke Zamba2 trained on the card against the CPU (two conv launches and one
+conv backward a layer); the causal conv's forward and backward kernels
+against float64 at Zamba2-7B's and xlstm-1.3b's training slices, ragged
+lengths and narrower convs, the backward repeating bit for bit, and through
+``ops.causal_conv_silu``'s autograd Function.
 Every test here
 carries the ``cuda`` marker and skips without a card. The file imports no JAX,
 so it runs where only PyTorch is installed:
@@ -766,7 +770,7 @@ def test_xlstm_and_whisper_serve_on_card_match_cpu(cuda_card, arch, prompt):
     else:
         nb = L // cfg.slstm_period
         norms = (3 * nb + 2 * nb * (cfg.slstm_period - 1) + 1) * 5
-        want = {}
+        want = {"causal_conv_silu": nb * (cfg.slstm_period - 1)}     # the prefill's mLSTMs
     assert ops.LAUNCHES == {**dict.fromkeys(ops.KERNELS, 0), "rmsnorm": norms, **want}
     host = generate(model, tree_map(lambda t: t.cpu(), params), toks.cpu(), 5,
                     **{k: v.cpu() for k, v in kw.items()})
@@ -1144,6 +1148,91 @@ def test_zamba2_smoke_trains_on_card_as_on_cpu(cuda_card):
     ops.reset_launches()
     card = run(cuda_card)
     assert ops.LAUNCHES["ssd_intra_chunk_bwd"] > 0 and ops.LAUNCHES["flash_attention_bwd"] > 0
+    # every layer's conv: its forward and its recompute, then its backward
+    assert ops.LAUNCHES["causal_conv_silu"] == 2 * SMOKE.n_layers
+    assert ops.LAUNCHES["causal_conv_silu_bwd"] == SMOKE.n_layers
     assert card == pytest.approx(run(torch.device("cpu")), rel=1e-4)
     for a, b in zip(leaves["cuda"], leaves["cpu"]):
         assert _rel_err(a.grad.cpu(), b.grad) < 1e-3
+
+
+# -- the causal conv with its bias and SiLU (kernels/causal_conv.py) ------------------
+# (B, S, channels, W, row width of the tensor x is sliced from, first channel):
+# Zamba2-7B's training xBC, the slice of in_proj's (2, 4096, 14704) output
+# after z's 7168 channels (the backward's 256-row chunks); xlstm-1.3b's
+# training x_in, the first half of (4, 2048, 8192) (128-row chunks, too few
+# programs at 256); ragged lengths (1, 2, W-1 = 3; 77, off the forward's
+# 32-row tile; 600, five of the backward's 128-row chunks, the last short)
+# at channels off the channel blocks, one contiguous; narrower convs.
+CONV_CASES = [(2, 4096, 7424, 4, 14704, 7168), (4, 2048, 4096, 4, 8192, 0),
+              (2, 1, 200, 4, 520, 8), (2, 2, 200, 4, 520, 8), (3, 3, 200, 4, 520, 8),
+              (2, 77, 200, 4, 520, 8), (2, 77, 200, 4, 200, 0), (2, 600, 200, 4, 520, 8),
+              (2, 77, 200, 3, 520, 8), (1, 40, 72, 2, 72, 0), (1, 300, 72, 1, 100, 20)]
+
+
+def _conv_case(dev, B, S, Ch, W, width, first, dtype, seed=11):
+    """x as a strided slice of a wider tensor, w, b and an output gradient
+    whose rows are apart too."""
+    wide, w, b, gwide = _card_inputs(dev, [(B, S, width), (W, Ch), (Ch,), (B, S, Ch + 8)],
+                                     dtype, seed)
+    return wide[..., first:first + Ch], w * 0.5, b * 0.1, gwide[..., :Ch]
+
+
+def _conv_close(got, want, dtype, name):
+    """One rounding to bf16 (2^-9 relative) after float32 steps: 2^-8 of
+    each element, and 1e-4 of the output's max|.| where the float32 sums
+    cancel (dw and db sum up to 16,384 rows); float32: 1e-5 of each element
+    and of max|.| (the sums' and the sigmoid's float32 rounding)."""
+    rtol, atol = (2 ** -8, 1e-4) if dtype == torch.bfloat16 else (1e-5, 1e-5)
+    got, want = got.detach().double(), want.detach().double()
+    assert torch.isfinite(got).all(), name
+    bad = (got - want).abs() > rtol * want.abs() + atol * float(want.abs().max())
+    assert not bad.any(), (name, float((got - want).abs().max()), float(want.abs().max()))
+
+
+@ATTN_DTYPE
+@pytest.mark.parametrize("B,S,Ch,W,width,first", CONV_CASES)
+def test_causal_conv_kernels_match_float64_on_card(cuda_card, B, S, Ch, W, width, first, dtype):
+    """The forward and the backward (dx, dw, db) against the plain forward
+    and autograd through it run in float64 on the same inputs; the output
+    and dx contiguous, x read where it lies."""
+    from repro_torch.kernels.causal_conv import (causal_conv_silu_bwd_triton,
+                                                 causal_conv_silu_plain, causal_conv_silu_triton)
+    dt = DTYPES[dtype]
+    x, w, b, dy = _conv_case(cuda_card, B, S, Ch, W, width, first, dt)
+    out = causal_conv_silu_triton(x, w, b)
+    grads = causal_conv_silu_bwd_triton(x, w, b, dy)
+    leaves = [t.double().requires_grad_() for t in (x, w, b)]
+    want = causal_conv_silu_plain(*leaves)
+    want_grads = torch.autograd.grad(want, leaves, dy.double())
+    assert out.is_contiguous() and out.dtype == dt and grads[0].is_contiguous()
+    _conv_close(out, want, dt, "y")
+    for name, g, e, t in zip(("dx", "dw", "db"), grads, want_grads, (x, w, b)):
+        assert g.dtype == t.dtype and g.shape == t.shape, name
+        _conv_close(g, e, dt, name)
+
+
+def test_causal_conv_bwd_repeats_bit_for_bit_on_card(cuda_card):
+    """No atomics: the backward gives the same bits in every call."""
+    from repro_torch.kernels.causal_conv import causal_conv_silu_bwd_triton
+    x, w, b, dy = _conv_case(cuda_card, *CONV_CASES[0], torch.bfloat16)
+    first = causal_conv_silu_bwd_triton(x, w, b, dy)
+    for _ in range(3):
+        for a, c in zip(first, causal_conv_silu_bwd_triton(x, w, b, dy)):
+            assert torch.equal(a, c)
+
+
+def test_ops_causal_conv_autograd_on_card(cuda_card):
+    """Through ``ops.causal_conv_silu``: one forward and one backward launch
+    under autograd, one forward without it, and no other kernel."""
+    x, w, b, dy = _conv_case(cuda_card, 2, 77, 200, 4, 520, 8, torch.bfloat16)
+    wide = x._base.requires_grad_()
+    xs, wg, bg = wide[..., 8:208], w.requires_grad_(), b.requires_grad_()
+    ops.reset_launches()
+    out = ops.causal_conv_silu(xs, wg, bg)
+    out.backward(dy)
+    with torch.inference_mode():
+        ops.causal_conv_silu(xs, wg, bg)
+    assert ops.LAUNCHES == {**dict.fromkeys(ops.KERNELS, 0), "causal_conv_silu": 2,
+                            "causal_conv_silu_bwd": 1}
+    assert wide.grad[..., :8].abs().max() == 0 and wg.grad is not None and bg.grad is not None

@@ -178,7 +178,8 @@ def test_ops_dispatch_cpu_to_plain_without_counting(monkeypatch):
         monkeypatch.setattr(tops, name, wrapped)
 
     for name in ("rmsnorm_plain", "flash_attention_plain", "decode_attention_plain",
-                 "ssd_intra_chunk_plain", "adamw_plain", "grad_sumsq_plain"):
+                 "ssd_intra_chunk_plain", "adamw_plain", "grad_sumsq_plain",
+                 "causal_conv_silu_plain"):
         recording(name)
     tops.reset_launches()
     rng = np.random.default_rng(4)
@@ -204,15 +205,19 @@ def test_ops_dispatch_cpu_to_plain_without_counting(monkeypatch):
                b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1)
     assert torch.equal(p, w.to(torch.bfloat16))
     assert tops.grad_sumsq([g, x]).shape == ()
+    xc = torch.from_numpy(rng.standard_normal((2, 9, 6)).astype(np.float32))
+    wc, bc = torch.ones(4, 6), torch.zeros(6)
+    assert tops.causal_conv_silu(xc, wc, bc).shape == xc.shape
+    assert tops.causal_conv_silu(xc, wc.requires_grad_(), bc).requires_grad
     assert calls == ["rmsnorm_plain", "rmsnorm_plain", "flash_attention_plain",
                      "flash_attention_plain", "decode_attention_plain",
                      "ssd_intra_chunk_plain", "ssd_intra_chunk_plain", "adamw_plain",
-                     "grad_sumsq_plain"]
+                     "grad_sumsq_plain", "causal_conv_silu_plain", "causal_conv_silu_plain"]
     assert tops.LAUNCHES == dict.fromkeys(tops.KERNELS, 0)
     assert set(tops.KERNELS) == {"rmsnorm", "rmsnorm_bwd", "flash_attention",
                                  "flash_attention_bwd", "decode_attention",
                                  "ssd_intra_chunk", "ssd_intra_chunk_bwd", "adamw",
-                                 "grad_sumsq"}
+                                 "grad_sumsq", "causal_conv_silu", "causal_conv_silu_bwd"}
 
 
 def test_ops_refuse_other_devices():
@@ -224,6 +229,8 @@ def test_ops_refuse_other_devices():
 def test_cuda_wrappers_refuse_cpu_tensors():
     """The kernel launchers never take a CPU tensor (no silent plain path)."""
     from repro_torch.kernels.adamw import adamw_triton, grad_sumsq_triton
+    from repro_torch.kernels.causal_conv import (causal_conv_silu_bwd_triton,
+                                                 causal_conv_silu_triton)
     from repro_torch.kernels.decode_attention import decode_attention_cuda
     from repro_torch.kernels.flash_attention import flash_attention_cuda
     from repro_torch.kernels.rmsnorm import rmsnorm_bwd_triton, rmsnorm_triton
@@ -245,6 +252,11 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         adamw_triton(x, x, x, x, x, torch.ones(4), b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1)
     with pytest.raises(ValueError, match="CUDA tensors"):
         grad_sumsq_triton([x])
+    xc, w = x[0], torch.ones(4, 64)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        causal_conv_silu_triton(xc, w, w[0])
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        causal_conv_silu_bwd_triton(xc, w, w[0], xc)
 
 
 @pytest.mark.parametrize("shape,match", [

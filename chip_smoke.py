@@ -625,7 +625,7 @@ def kernel_cases(torch):
 
         def make(dtype, shape=(Bs, nc, Q, H, N, P), la_kind=la_kind, G=G):
             Bs, nc, Q, H, N, P = shape
-            cb = (Bs, nc, Q, N) if G == 1 else (Bs, nc, Q, G, N)
+            cb = (Bs, nc, Q, G, N)
             g = torch.Generator(device=dev).manual_seed(2)
             z = torch.randn((Bs, nc, Q, H), generator=g, device=dev)
             la = {"small": -z.abs() * 0.1, "model": -F.softplus(z), "mixed": z * 0.05}[la_kind]
@@ -670,7 +670,7 @@ def kernel_cases(torch):
 
         def make(dtype, shape=(Bs, nc, Q, H, N, P), la_kind=la_kind, G=G):
             Bs, nc, Q, H, N, P = shape
-            cb = (Bs, nc, Q, N) if G == 1 else (Bs, nc, Q, G, N)
+            cb = (Bs, nc, Q, G, N)
             g = torch.Generator(device=dev).manual_seed(6)
             z = torch.randn((Bs, nc, Q, H), generator=g, device=dev)
             la = {"small": -z.abs() * 0.1, "model": -F.softplus(z), "mixed": z * 0.05}[la_kind]

@@ -207,8 +207,8 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def ssd_intra_chunk(la: torch.Tensor, C: torch.Tensor, B_in: torch.Tensor, x: torch.Tensor):
-    """la: (B,nc,Q,H); C/B_in: (B,nc,Q,N), or (B,nc,Q,G,N) for G groups
-    (head h reads group h // (H/G)); x: (B,nc,Q,H,P) ->
+    """la: (B,nc,Q,H); C/B_in: (B,nc,Q,G,N), G groups of heads (head h
+    reads group h // (H/G)); x: (B,nc,Q,H,P) ->
     (y (B,nc,Q,H,P), states (B,nc,H,P,N), tot (B,nc,H)), float32."""
     if isinstance(la, DTensor):
         return sharded.ssd_intra_chunk(la, C, B_in, x, local=ssd_intra_chunk)

@@ -237,7 +237,7 @@ def decode_attention(q: DTensor, k, v, *, kv_len, window, local: Callable) -> DT
 
 # -- ssd_intra_chunk ----------------------------------------------------------
 def ssd_intra_chunk(la: DTensor, C, B_in, x, *, local: Callable):
-    """la (B,nc,Q,H), C/B_in (B,nc,Q,N), x (B,nc,Q,H,P): batch over any mesh
+    """la (B,nc,Q,H), C/B_in (B,nc,Q,G,N), x (B,nc,Q,H,P): batch over any mesh
     dim; heads (la dim 3, x dim 3) over one where C/B_in are replicated
     there, their grads then partial sums."""
     mesh = la.device_mesh

@@ -34,29 +34,27 @@ _BWD_SIGNATURES = {"ssd_intra_chunk_bwd": [_P] * 13 + [_I] * 7 + [_P]}
 BWD_MAX_Q, BWD_MAX_N = 128, 64      # the backward kernel's limits (any Q, N % 4 == 0)
 
 
-def head_groups(H: int, C: torch.Tensor) -> torch.Tensor:
-    """The B/C group each of the H heads reads, (H,) int64: C (B,nc,Q,N) is
-    one group; C (B,nc,Q,G,N) G groups, head h reading group h // (H/G)."""
-    G = C.shape[3] if C.dim() == 5 else 1
-    return torch.arange(H, device=C.device) // (H // G)
+def per_head(t: torch.Tensor, dim: int, H: int) -> torch.Tensor:
+    """``t`` with its B/C group dim ``dim`` (G groups) widened to the H heads,
+    head h reading group h // (H/G). A broadcast, not a gather: its gradient
+    is a sum over each group's heads, in the same order on every call."""
+    G = t.shape[dim]
+    t = t.unsqueeze(dim + 1)
+    return t.expand(*t.shape[:dim + 1], H // G, *t.shape[dim + 2:]).flatten(dim, dim + 1)
 
 
 def ssd_intra_chunk_plain(la: torch.Tensor, C: torch.Tensor, B_in: torch.Tensor,
                           x: torch.Tensor):
-    """la: (B,nc,Q,H) log-decay; C/B_in: (B,nc,Q,N), or (B,nc,Q,G,N) for G
-    groups of heads; x: (B,nc,Q,H,P).
+    """la: (B,nc,Q,H) log-decay; C/B_in: (B,nc,Q,G,N), G groups of heads
+    (head h reads group h // (H/G)); x: (B,nc,Q,H,P).
 
     Returns (y (B,nc,Q,H,P), states (B,nc,H,P,N), tot (B,nc,H)) in float32,
     or in float64 where the inputs are float64 (an oracle for the kernel).
     """
     la, C, B_in, x = (widen(t) for t in (la, C, B_in, x))
-    Q = la.shape[2]
+    Q, H = la.shape[2:]
     L = torch.cumsum(la, dim=2)
-    if C.dim() == 5:
-        grp = head_groups(la.shape[3], C)
-        CB = torch.einsum("bcqgn,bcsgn->bcqsg", C, B_in)[..., grp]     # (B,nc,Q,Q,H)
-    else:
-        CB = torch.einsum("bcqn,bcsn->bcqs", C, B_in)[..., None]
+    CB = per_head(torch.einsum("bcqgn,bcsgn->bcqsg", C, B_in), 4, H)   # (B,nc,Q,Q,H)
     seg = L[:, :, :, None, :] - L[:, :, None, :, :]              # (B,nc,Q,Q,H)
     tri = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=la.device))
     # masked before the exp: above the diagonal seg > 0 may overflow, and the
@@ -66,10 +64,7 @@ def ssd_intra_chunk_plain(la: torch.Tensor, C: torch.Tensor, B_in: torch.Tensor,
     y = torch.einsum("bcqsh,bcshp->bcqhp", M, x)
     tot = L[:, :, -1, :]
     w_end = torch.exp(tot[:, :, None, :] - L)
-    if C.dim() == 5:
-        st = torch.einsum("bcqh,bcqhp,bcqhn->bchpn", w_end, x, B_in[:, :, :, grp])
-    else:
-        st = torch.einsum("bcqh,bcqhp,bcqn->bchpn", w_end, x, B_in)
+    st = torch.einsum("bcqh,bcqhp,bcqhn->bchpn", w_end, x, per_head(B_in, 3, H))
     return y, st, tot
 
 
@@ -117,19 +112,18 @@ def bwd_heads_per_block(BC: int, H: int, n_sm: int) -> int:
 def check_inputs(la: torch.Tensor, C: torch.Tensor, B_in: torch.Tensor, x: torch.Tensor,
                  q_multiple: int = 8):
     """Raise ValueError unless the tensors are what the kernel takes: float32,
-    contiguous and 16-byte aligned, la (B,nc,Q,H), C/B_in (B,nc,Q,N) or
-    (B,nc,Q,G,N) with G dividing H, x (B,nc,Q,H,P) with Q % q_multiple == 0
+    contiguous and 16-byte aligned, la (B,nc,Q,H), C/B_in (B,nc,Q,G,N) with
+    G dividing H, x (B,nc,Q,H,P) with Q % q_multiple == 0
     (8 for the forward, 1 for the backward), Q <= 128, N % 4 == 0,
     P % 4 == 0. Returns (B, nc, Q, H, G, N, P)."""
     ts = (la, C, B_in, x)
     if any(t.dtype != torch.float32 for t in ts):
         raise ValueError("ssd_intra_chunk_cuda takes float32 tensors")
-    if la.dim() != 4 or C.dim() not in (4, 5) or x.dim() != 5 or C.shape != B_in.shape:
+    if la.dim() != 4 or C.dim() != 5 or x.dim() != 5 or C.shape != B_in.shape:
         raise ValueError(f"bad shapes la {tuple(la.shape)} C {tuple(C.shape)} "
                          f"B {tuple(B_in.shape)} x {tuple(x.shape)}")
     Bs, nc, Q, H = la.shape
-    G = C.shape[3] if C.dim() == 5 else 1
-    N, P = C.shape[-1], x.shape[-1]
+    G, N, P = C.shape[3], C.shape[4], x.shape[-1]
     if C.shape[:3] != (Bs, nc, Q) or x.shape[:4] != (Bs, nc, Q, H) or H % G:
         raise ValueError(f"la {tuple(la.shape)}, C {tuple(C.shape)} and x {tuple(x.shape)} "
                          "do not match")

@@ -29,21 +29,20 @@ from torch.distributed.tensor import DTensor
 
 from ..configs.base import ModelConfig
 from ..kernels.sharded import cache_write_prefix
-from ..spans import span
 from .attention import KVCache, attention, attn_init, split_heads
 from .common import Model, remat_wrap, serving, stack_init, unstack
 from .layers import (
-    cross_entropy_loss,
     dense,
     dtype_of,
     embed,
     embed_init,
+    head_loss,
+    logits,
     norm,
     rmsnorm_init,
     sinusoid_embed,
     swiglu,
     swiglu_init,
-    unembed,
 )
 
 
@@ -138,8 +137,7 @@ def loss_fn(params, batch, cfg: ModelConfig, *, remat=None):
     for lp in unstack(params["dec_layers"], cfg.n_layers):
         x = layer(lp, x, enc_out)
     h = norm(params["final_norm"], x, cfg.norm_eps)
-    with span("model.head"):
-        ce = cross_entropy_loss(unembed(params["unembed"], h), batch["labels"])
+    ce = head_loss(params, h, batch["labels"])
     return ce, {"ce": ce, "aux": torch.zeros((), device=ce.device)}
 
 
@@ -174,7 +172,7 @@ def prefill(params, batch, S_max: int, cfg: ModelConfig, *, cache=None):
                 dst[:, :S] = src
     h = norm(params["final_norm"], x, cfg.norm_eps)
     cache["pos"].fill_(S)
-    return unembed(params["unembed"], h[:, -1]), cache
+    return logits(params, h[:, -1]), cache
 
 
 @serving
@@ -190,7 +188,7 @@ def decode_step(params, cache, batch, cfg: ModelConfig):
                           enc_kv=(cache["ck"][i], cache["cv"][i]),
                           cache=KVCache(cache["k"][i], cache["v"][i]), cache_pos=pos)
     h = norm(params["final_norm"], x, cfg.norm_eps)
-    return unembed(params["unembed"], h[:, 0]), {**cache, "pos": pos + 1}
+    return logits(params, h[:, 0]), {**cache, "pos": pos + 1}
 
 
 def init_cache(cfg: ModelConfig, B: int, S_max: int, device=None, *, enc_len=None):

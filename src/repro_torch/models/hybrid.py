@@ -22,19 +22,18 @@ from torch.distributed.tensor import DTensor
 
 from ..configs.base import ModelConfig
 from ..kernels.sharded import cache_write_prefix
-from ..spans import span
 from .attention import KVCache, attention, attn_init
 from .common import Model, remat_wrap, serving, stack_init, tree_map
 from .layers import (
-    cross_entropy_loss,
     dtype_of,
     embed,
     embed_init,
+    head_loss,
+    logits,
     norm,
     rmsnorm_init,
     swiglu,
     swiglu_init,
-    unembed,
 )
 from .mamba2 import MambaCache, empty_mamba_cache, mamba_forward, mamba_init
 
@@ -101,10 +100,6 @@ def init(gen: torch.Generator, cfg: ModelConfig):
     return params
 
 
-def _logits(params, h):
-    return unembed(params.get("unembed", params["embed"]), h)
-
-
 def _mamba_slots(params, cfg: ModelConfig, cache):
     """Per mamba layer, in the order the model runs: its params, its
     MambaCache (views into ``cache``) and the shared-block site that runs
@@ -152,9 +147,8 @@ def prefill(params, batch, S_max: int, cfg: ModelConfig, *, cache=None):
                 else:
                     dst[:, :S] = src
     h = norm(params["final_norm"], x, cfg.norm_eps)
-    logits = _logits(params, h[:, -1])
     cache["pos"].fill_(S)
-    return logits, cache
+    return logits(params, h[:, -1]), cache
 
 
 @serving
@@ -174,8 +168,7 @@ def decode_step(params, cache, batch, cfg: ModelConfig):
                                  cache=KVCache(cache["sk"][site], cache["sv"][site]),
                                  cache_pos=pos)
     h = norm(params["final_norm"], x, cfg.norm_eps)
-    logits = _logits(params, h[:, 0])
-    return logits, {**cache, "pos": pos + 1}
+    return logits(params, h[:, 0]), {**cache, "pos": pos + 1}
 
 
 def init_cache(cfg: ModelConfig, B: int, S_max: int, device=None):
@@ -220,8 +213,7 @@ def loss_fn(params, batch, cfg: ModelConfig, *, remat=None):
     positions = torch.arange(x.shape[1], device=x.device)
     h = _forward(params, cfg, x, positions, remat=remat)
     h = norm(params["final_norm"], h, cfg.norm_eps)
-    with span("model.head"):
-        ce = cross_entropy_loss(_logits(params, h), batch["labels"])
+    ce = head_loss(params, h, batch["labels"])
     return ce, {"ce": ce, "aux": torch.zeros((), device=ce.device)}
 
 

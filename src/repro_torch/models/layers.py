@@ -7,8 +7,6 @@ and the backward where autograd needs it), the plain version on a CPU one.
 
 from __future__ import annotations
 
-from typing import Optional
-
 import torch
 import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Partial, Replicate
@@ -19,6 +17,7 @@ from ..hints import flag
 from ..kernels import ops, sharded
 from ..kernels.rmsnorm import rmsnorm_bwd_plain, rmsnorm_plain
 from ..precision import widen
+from ..spans import span
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
 
@@ -129,6 +128,20 @@ def unembed(p, x: torch.Tensor) -> torch.Tensor:
     return x @ w.T
 
 
+def logits(params, h: torch.Tensor) -> torch.Tensor:
+    """The model head: ``h`` through the untied ``unembed`` where the model
+    has one, the tied ``embed`` table otherwise."""
+    return unembed(params.get("unembed", params["embed"]), h)
+
+
+def head_loss(params, h: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """The loss of the final hidden states ``h`` (B,S,d), normed, against
+    ``labels`` (B,S): the head and ``cross_entropy_loss`` in the
+    ``model.head`` span."""
+    with span("model.head"):
+        return cross_entropy_loss(logits(params, h), labels)
+
+
 def swiglu(p, x: torch.Tensor) -> torch.Tensor:
     return dense(p["down"], F.silu(dense(p["gate"], x)) * dense(p["up"], x))
 
@@ -173,12 +186,6 @@ def sinusoid_embed(S: int, d: int, device=None) -> torch.Tensor:
     dim = torch.arange(d // 2, dtype=torch.float32, device=device)[None, :]
     ang = pos / (10000.0 ** (2 * dim / d))
     return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
-
-
-def softcap(x: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
-    if not cap:
-        return x
-    return cap * torch.tanh(x / cap)
 
 
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor, *,

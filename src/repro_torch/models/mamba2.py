@@ -34,7 +34,6 @@ from torch.distributed.tensor import DTensor
 from ..configs.base import ModelConfig
 from ..hints import constrain
 from ..kernels import ops, sharded
-from ..kernels.causal_conv import causal_conv_plain
 from ..precision import compute_dtype, widen
 from ..spans import span, tally
 from .layers import dense, dense_init, norm
@@ -72,18 +71,6 @@ def mamba_init(gen: torch.Generator, cfg: ModelConfig, *, dtype=torch.float32):
     }
 
 
-def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Depthwise causal conv. x: (B, S, Ch); w: (W, Ch) -> (B, S, Ch), contiguous.
-
-    ``repro``'s ``conv_general_dilated`` with WIO weights ``w[:, None, :]`` is a
-    cross-correlation, which is what ``F.conv1d`` computes with the weight as
-    (Ch, 1, W) from ``w.T``. On a DTensor it runs on each rank's batch and
-    channel shards (``kernels.sharded.depthwise_conv``)."""
-    if isinstance(x, DTensor):
-        return sharded.depthwise_conv(x, w, b, local=_causal_conv)
-    return causal_conv_plain(x, w, b)
-
-
 def conv_tail_of(x: torch.Tensor, W: int) -> torch.Tensor:
     """The decode state's last W-1 conv inputs of x (B, S, Ch): a slice of x,
     left-padded with the zeros the causal conv pads with where S < W-1."""
@@ -95,22 +82,20 @@ def ssd_chunked(x, dt, A, B_in, C_in, Q: int, h0=None):
     """Chunked SSD scan.
 
     x: (B, S, H, P); dt: (B, S, H) (post-softplus); A: (H,) negative;
-    B_in/C_in: (B, S, N) (one group, shared across heads), or (B, S, G, N)
-    (G groups: head h reads group h // (H/G)).
+    B_in/C_in: (B, S, G, N), G groups of heads (head h reads group
+    h // (H/G); G = 1 shares one across all heads).
     Returns y: (B, S, H, P) in x's dtype and the final state (B, H, P, N).
     """
     Bsz, S, H, P = x.shape
-    N = B_in.shape[-1]
-    grouped = B_in.dim() == 4
+    G, N = B_in.shape[2:]
     S_orig = S
     if S % Q:
         # pad the tail with identity steps: dt=0 -> a=1, xbar=0 -> state unchanged
         pad = Q - S % Q
         x = F.pad(x, (0, 0, 0, 0, 0, pad))
         dt = F.pad(dt, (0, 0, 0, pad))
-        tail = (0, 0) * (B_in.dim() - 2) + (0, pad)
-        B_in = F.pad(B_in, tail)
-        C_in = F.pad(C_in, tail)
+        B_in = F.pad(B_in, (0, 0, 0, 0, 0, pad))
+        C_in = F.pad(C_in, (0, 0, 0, 0, 0, pad))
         S = S + pad
     nc = S // Q
     tally(chunks=Bsz * nc)
@@ -118,8 +103,8 @@ def ssd_chunked(x, dt, A, B_in, C_in, Q: int, h0=None):
     # log a_t, its heads laid out as x's (a slice where dt is whole)
     lac = constrain(widen(dt * A).reshape(Bsz, nc, Q, H), "dp", None, None, "model").contiguous()
     xc = widen(dt[..., None] * x).reshape(Bsz, nc, Q, H, P).contiguous()
-    Bc = widen(B_in).reshape(Bsz, nc, Q, *B_in.shape[2:]).contiguous()
-    Cc = widen(C_in).reshape(Bsz, nc, Q, *C_in.shape[2:]).contiguous()
+    Bc = widen(B_in).reshape(Bsz, nc, Q, G, N).contiguous()
+    Cc = widen(C_in).reshape(Bsz, nc, Q, G, N).contiguous()
     y_intra, states, _ = ops.ssd_intra_chunk(lac, Cc, Bc, xc)
 
     # inter-chunk scan over h: h_prevs[:, c] is the state entering chunk c
@@ -129,13 +114,8 @@ def ssd_chunked(x, dt, A, B_in, C_in, Q: int, h0=None):
     h_prevs, h = carry_states(states, L[:, :, -1, :], h)
 
     # y_inter[t] = exp(L_t) * C_t · h_prev (C_t of the head's group)
-    if grouped:
-        G = Cc.shape[3]
-        y_inter = torch.einsum("bcqgn,bcgjpn->bcqgjp", Cc,
-                               h_prevs.reshape(Bsz, nc, G, H // G, P, N)).reshape(
-            Bsz, nc, Q, H, P)
-    else:
-        y_inter = torch.einsum("bcqn,bchpn->bcqhp", Cc, h_prevs)
+    y_inter = torch.einsum("bcqgn,bcgjpn->bcqgjp", Cc,
+                           h_prevs.reshape(Bsz, nc, G, H // G, P, N)).reshape(Bsz, nc, Q, H, P)
     y_inter = y_inter * torch.exp(L)[..., None]
     y = (y_intra + y_inter).reshape(Bsz, S, H, P)[:, :S_orig]
     return y.to(x.dtype), h
@@ -226,11 +206,8 @@ def mamba_forward(p, x: torch.Tensor, cfg: ModelConfig, *, cache: MambaCache | N
 
     xs, B_in, C_in = torch.split(xBC, [di, G * N, G * N], dim=-1)
     xs = constrain(xs.reshape(Bsz, S, H, P), "dp", None, "model", None)
-    if G > 1:
-        B_in, C_in = B_in.reshape(Bsz, S, G, N), C_in.reshape(Bsz, S, G, N)
-    else:
-        B_in = constrain(B_in, "dp", None, None)
-        C_in = constrain(C_in, "dp", None, None)
+    B_in = constrain(B_in.reshape(Bsz, S, G, N), "dp", None, None, None)
+    C_in = constrain(C_in.reshape(Bsz, S, G, N), "dp", None, None, None)
     dt = F.softplus(widen(dt_raw) + p["dt_bias"])
     A = -torch.exp(p["A_log"])
 
@@ -241,9 +218,9 @@ def mamba_forward(p, x: torch.Tensor, cfg: ModelConfig, *, cache: MambaCache | N
     else:
         a = torch.exp(dt * A)                                           # (B,1,H)
         xbar = widen(dt[..., None] * xs)                                # (B,1,H,P)
-        dh = torch.einsum("bhp,bn->bhpn", xbar[:, 0], widen(B_in[:, 0]))
+        dh = torch.einsum("bhp,bn->bhpn", xbar[:, 0], widen(B_in[:, 0, 0]))
         cache.h.mul_(a[:, 0, :, None, None]).add_(dh)
-        y = torch.einsum("bn,bhpn->bhp", widen(C_in[:, 0]), cache.h)
+        y = torch.einsum("bn,bhpn->bhp", widen(C_in[:, 0, 0]), cache.h)
         y = y[:, None].to(x.dtype)
         state = cache
 

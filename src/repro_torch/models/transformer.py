@@ -35,19 +35,18 @@ from torch.distributed.tensor import DTensor
 
 from ..configs.base import ModelConfig
 from ..kernels.sharded import cache_write_prefix
-from ..spans import span
 from .attention import KVCache, attention, attn_init
 from .common import Model, remat_wrap, serving, stack_init, tree_map, unstack
 from .layers import (
-    cross_entropy_loss,
     dtype_of,
     embed,
     embed_init,
+    head_loss,
+    logits,
     norm,
     rmsnorm_init,
     swiglu,
     swiglu_init,
-    unembed,
 )
 from .moe import moe_ffn, moe_init
 
@@ -120,10 +119,6 @@ def _blocks(cfg: ModelConfig) -> tuple[int, int]:
     return R, cfg.n_layers // (R + 1)
 
 
-def _logits(params, h):
-    return unembed(params.get("unembed", params["embed"]), h)
-
-
 def _embed_inputs(params, cfg: ModelConfig, batch):
     """Token embeddings, after the VLM's patch prefix. Returns (x, n_prefix)."""
     x = embed(params["embed"], batch["tokens"])
@@ -189,8 +184,7 @@ def loss_fn(params, batch, cfg: ModelConfig, *, remat: Optional[str] = None):
     positions = torch.arange(x.shape[1], device=x.device)
     h, aux = _forward(params, cfg, x, positions, remat=remat)
     h = norm(params["final_norm"], h, cfg.norm_eps)[:, n_prefix:]
-    with span("model.head"):
-        ce = cross_entropy_loss(_logits(params, h), batch["labels"])
+    ce = head_loss(params, h, batch["labels"])
     if not torch.is_tensor(aux):                 # no MoE layer
         aux = torch.zeros((), device=ce.device)
     return ce + MOE_AUX_COEF * aux, {"ce": ce, "aux": aux}
@@ -233,9 +227,8 @@ def prefill(params, batch, S_max: int, cfg: ModelConfig, *, cache=None):
                 d[:, :src.shape[1]] = src
     x, _ = _forward(params, cfg, x, torch.arange(S, device=device), keep=keep)
     h = norm(params["final_norm"], x, cfg.norm_eps)
-    logits = _logits(params, h[:, -1])
     cache["pos"].fill_(S)
-    return logits, cache
+    return logits(params, h[:, -1]), cache
 
 
 @serving
@@ -261,8 +254,7 @@ def decode_step(params, cache, batch, cfg: ModelConfig):
                                cache=_layer_cache(cache, where), cache_pos=pos,
                                **(ring if where[0] == "local" else {}))
     h = norm(params["final_norm"], x, cfg.norm_eps)
-    logits = _logits(params, h[:, 0])
-    return logits, {**cache, "pos": pos + 1}
+    return logits(params, h[:, 0]), {**cache, "pos": pos + 1}
 
 
 def init_cache(cfg: ModelConfig, B: int, S_max: int, device=None):

@@ -26,9 +26,8 @@ import torch
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from ..configs.base import ModelConfig
-from ..spans import span
 from .common import Model, remat_wrap, serving, stack_init, tree_map, unstack
-from .layers import cross_entropy_loss, dtype_of, embed, embed_init, norm, rmsnorm_init, unembed
+from .layers import dtype_of, embed, embed_init, head_loss, logits, norm, rmsnorm_init
 from .xlstm import (
     MLSTMCache,
     SLSTMCache,
@@ -81,10 +80,6 @@ def init(gen: torch.Generator, cfg: ModelConfig):
     return params
 
 
-def _logits(params, h):
-    return unembed(params.get("unembed", params["embed"]), h)
-
-
 def _layers(params, cfg: ModelConfig):
     """Per block: its sLSTM params and its nm mLSTM layers' params (views)."""
     nb, nm = _blocks(cfg)
@@ -108,8 +103,7 @@ def loss_fn(params, batch, cfg: ModelConfig, *, remat=None):
     ``batch["labels"]`` (-100 ignored). Returns (loss, {"ce", "aux"}), aux 0."""
     x = embed(params["embed"], batch["tokens"])
     h = norm(params["final_norm"], _forward(params, cfg, x, remat=remat), cfg.norm_eps)
-    with span("model.head"):
-        ce = cross_entropy_loss(_logits(params, h), batch["labels"])
+    ce = head_loss(params, h, batch["labels"])
     return ce, {"ce": ce, "aux": torch.zeros((), device=ce.device)}
 
 
@@ -148,7 +142,7 @@ def prefill(params, batch, S_max: int, cfg: ModelConfig, *, cache=None):
                 dst[b, i].copy_(src)
     h = norm(params["final_norm"], x, cfg.norm_eps)
     cache["pos"].fill_(S)
-    return _logits(params, h[:, -1]), cache
+    return logits(params, h[:, -1]), cache
 
 
 @serving
@@ -163,7 +157,7 @@ def decode_step(params, cache, batch, cfg: ModelConfig):
         for i, lp in enumerate(mps):
             x, _ = _m_layer(lp, x, cfg, cache=MLSTMCache(*(t[b, i] for t in cache["m"])))
     h = norm(params["final_norm"], x, cfg.norm_eps)
-    return _logits(params, h[:, 0]), {**cache, "pos": cache["pos"] + 1}
+    return logits(params, h[:, 0]), {**cache, "pos": cache["pos"] + 1}
 
 
 def init_cache(cfg: ModelConfig, B: int, S_max: int, device=None):

@@ -36,7 +36,6 @@ from ..spans import span, tally
 from .attention import attention
 from .common import Model, remat_wrap, stack_init, unstack
 from .layers import (
-    cross_entropy_loss,
     dense,
     dense_init,
     dtype_of,
@@ -44,9 +43,9 @@ from .layers import (
     embed_init,
     gated_mlp,
     gated_mlp_init,
+    head_loss,
     norm,
     rmsnorm_init,
-    unembed,
 )
 from .mamba2 import mamba_forward, mamba_init
 
@@ -136,17 +135,12 @@ def _forward(params, cfg: ModelConfig, emb, *, remat=None):
     return x
 
 
-def _logits(params, h):
-    return unembed(params.get("unembed", params["embed"]), h)
-
-
 def loss_fn(params, batch, cfg: ModelConfig, *, remat=None):
     """Mean next-token cross entropy of ``batch["tokens"]`` against
     ``batch["labels"]`` (-100 ignored). Returns (loss, {"ce", "aux"}), aux 0."""
     emb = embed(params["embed"], batch["tokens"])
     h = norm(params["final_norm"], _forward(params, cfg, emb, remat=remat), cfg.norm_eps)
-    with span("model.head"):
-        ce = cross_entropy_loss(_logits(params, h), batch["labels"])
+    ce = head_loss(params, h, batch["labels"])
     return ce, {"ce": ce, "aux": torch.zeros((), device=ce.device)}
 
 

@@ -71,14 +71,14 @@ def test_depthwise_conv_counts_two_per_tap_per_output():
     """2·B·L·C·W for the forward, once more for each gradient: ``repro``'s
     ``_conv_flops`` gives the forward a C-th of that (it divides a per-group
     kernel count by the group count)."""
-    from repro_torch.models.mamba2 import _causal_conv
+    from repro_torch.kernels.causal_conv import causal_conv_plain
     Bq, L, C, W = 2, 9, 6, 4
     x, w, b = torch.zeros(Bq, L, C), torch.zeros(W, C), torch.zeros(C)
-    assert step_costs(_causal_conv, x, w, b)["flops"] == 2 * Bq * L * C * W
+    assert step_costs(causal_conv_plain, x, w, b)["flops"] == 2 * Bq * L * C * W
 
     def grads(x, w, b):
         x, w, b = (t.requires_grad_() for t in (x, w, b))
-        return torch.autograd.grad(_causal_conv(x, w, b).sum(), (x, w))
+        return torch.autograd.grad(causal_conv_plain(x, w, b).sum(), (x, w))
     assert step_costs(grads, x, w, b)["flops"] == 3 * 2 * Bq * L * C * W
 
 

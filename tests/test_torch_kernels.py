@@ -194,7 +194,7 @@ def test_ops_dispatch_cpu_to_plain_without_counting(monkeypatch):
     kl = torch.tensor(5, dtype=torch.int32)
     assert tops.decode_attention(q[:, :1], k, k, kv_len=kl).shape == (1, 1, 4, 64)
     la = -torch.from_numpy(np.abs(rng.standard_normal((1, 2, 32, 4))).astype(np.float32))
-    C, Bm = (torch.from_numpy(rng.standard_normal((1, 2, 32, 16)).astype(np.float32))
+    C, Bm = (torch.from_numpy(rng.standard_normal((1, 2, 32, 1, 16)).astype(np.float32))
              for _ in range(2))
     xs = torch.from_numpy(rng.standard_normal((1, 2, 32, 4, 16)).astype(np.float32))
     assert len(tops.ssd_intra_chunk(la, C, Bm, xs)) == 3
@@ -269,22 +269,22 @@ def test_ssd_contract_errors(shape, match):
     """The kernel's contract is checked before any launch, on any device."""
     from repro_torch.kernels.ssd_scan import check_inputs
     B, nc, Q, H, N, P = shape
-    args = [torch.zeros(s) for s in ((B, nc, Q, H), (B, nc, Q, N), (B, nc, Q, N),
+    args = [torch.zeros(s) for s in ((B, nc, Q, H), (B, nc, Q, 1, N), (B, nc, Q, 1, N),
                                      (B, nc, Q, H, P))]
     with pytest.raises(ValueError, match=match):
         check_inputs(*args)
 
 
 def test_ssd_contract_types_layouts_and_edges():
-    """float64, mismatched and non-contiguous inputs raise; the edge shapes
-    the kernel pads (Q 16 with N = P = 8; Q 40, N 4, P 12; Q 128) pass, as
-    one group, and C and B in 2 groups of 56 heads; 3 groups of 112 heads
-    raise."""
+    """float64, mismatched and non-contiguous inputs raise, and so do C and
+    B without their group dim, (B, nc, Q, N); the edge shapes the kernel
+    pads (Q 16 with N = P = 8; Q 40, N 4, P 12; Q 128) pass in one group,
+    and C and B in 2 groups of 56 heads; 3 groups of 112 heads raise."""
     from repro_torch.kernels.ssd_scan import check_inputs
 
     def make(B, nc, Q, H, N, P, dtype=torch.float32):
         return [torch.zeros(s, dtype=dtype) for s in
-                ((B, nc, Q, H), (B, nc, Q, N), (B, nc, Q, N), (B, nc, Q, H, P))]
+                ((B, nc, Q, H), (B, nc, Q, 1, N), (B, nc, Q, 1, N), (B, nc, Q, H, P))]
     with pytest.raises(ValueError, match="float32"):
         check_inputs(*make(1, 1, 16, 1, 8, 8, torch.float64))
     la, C, Bm, x = make(1, 1, 16, 2, 8, 8)
@@ -294,6 +294,8 @@ def test_ssd_contract_types_layouts_and_edges():
         check_inputs(la, C, Bm[..., :4], x)
     with pytest.raises(ValueError, match="contiguous"):
         check_inputs(la, C, Bm, x.transpose(3, 4).contiguous().transpose(3, 4))
+    with pytest.raises(ValueError, match="bad shapes"):
+        check_inputs(la, C[:, :, :, 0], Bm[:, :, :, 0], x)
     for shape in ((1, 1, 16, 1, 8, 8), (1, 2, 40, 3, 4, 12), (2, 2, 128, 113, 64, 64)):
         B, nc, Q, H, N, P = shape
         assert check_inputs(*make(*shape)) == (B, nc, Q, H, 1, N, P)

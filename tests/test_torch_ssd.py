@@ -20,6 +20,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.configs import get_smoke  # noqa: E402
 from repro.models import mamba2 as jm  # noqa: E402
+from repro_torch.kernels.causal_conv import causal_conv_plain  # noqa: E402
 from repro_torch.kernels.ssd_scan import (  # noqa: E402
     ssd_intra_chunk_bwd_plain,
     ssd_intra_chunk_plain,
@@ -40,6 +41,13 @@ def _ssd_inputs(seed, B, nc, Q, H, N, P, signed=False):
     return la, C, Bm, x
 
 
+def _port(arrs):
+    """The port's side of ``_ssd_inputs``: C and B in one group,
+    (B, nc, Q, 1, N), where ``repro`` takes (B, nc, Q, N)."""
+    la, C, Bm, *rest = (torch.from_numpy(a) for a in arrs)
+    return (la, C[..., None, :], Bm[..., None, :], *rest)
+
+
 def _close(got, want, tol):
     np.testing.assert_allclose(np.asarray(got, np.float32), np.asarray(want, np.float32),
                                atol=tol, rtol=tol)
@@ -49,7 +57,7 @@ def _close(got, want, tol):
 def test_ssd_intra_chunk_plain_matches_pallas(B, nc, Q, H, N, P):
     from repro.kernels import ops, ref
     arrs = _ssd_inputs(2, B, nc, Q, H, N, P)
-    got = ssd_intra_chunk_plain(*(torch.from_numpy(a) for a in arrs))
+    got = ssd_intra_chunk_plain(*_port(arrs))
     jargs = [jnp.asarray(a) for a in arrs]
     for want in (ops.ssd_intra_chunk(*jargs), ref.ssd_intra_chunk_ref(*jargs)):
         for g, w, tol in zip(got, want, (TOL, TOL, TOL_TOT)):
@@ -64,7 +72,7 @@ def test_ssd_intra_chunk_plain_matches_pallas_with_growth(B, nc, Q, H, N, P):
     from repro.kernels import ops
     arrs = _ssd_inputs(4, B, nc, Q, H, N, P, signed=True)
     assert (arrs[0] > 0).any()
-    got = ssd_intra_chunk_plain(*(torch.from_numpy(a) for a in arrs))
+    got = ssd_intra_chunk_plain(*_port(arrs))
     want = ops.ssd_intra_chunk(*(jnp.asarray(a) for a in arrs))
     for g, w, tol in zip(got, want, (TOL, TOL, TOL_TOT)):
         _close(g, w, tol)
@@ -84,7 +92,7 @@ def test_ssd_intra_chunk_bwd_plain_matches_jax_grad(shape, signed):
 
     from repro.kernels import ref
     arrs = _ssd_inputs(6, *shape, signed=signed)
-    y, st, tot = ssd_intra_chunk_plain(*(torch.from_numpy(a) for a in arrs))
+    y, st, tot = ssd_intra_chunk_plain(*_port(arrs))
     rng = np.random.default_rng(7)
     cots = [rng.standard_normal(t.shape).astype(np.float32) for t in (y, st, tot)]
     assert np.abs(cots[2]).min() > 0
@@ -93,8 +101,8 @@ def test_ssd_intra_chunk_bwd_plain_matches_jax_grad(shape, signed):
         outs = ref.ssd_intra_chunk_ref(*ins)
         return sum(jnp.sum(o * c) for o, c in zip(outs, cots))
     want = jax.grad(f, argnums=(0, 1, 2, 3))(*(jnp.asarray(a) for a in arrs))
-    got = ssd_intra_chunk_bwd_plain(*(torch.from_numpy(a) for a in (*arrs, *cots)))
-    for g, w in zip(got, want):
+    dla, dC, dB, dx = ssd_intra_chunk_bwd_plain(*_port((*arrs, *cots)))
+    for g, w in zip((dla, dC[..., 0, :], dB[..., 0, :], dx), want):
         w = np.asarray(w, np.float64)
         assert g.shape == w.shape and g.dtype == torch.float32
         assert np.max(np.abs(g.numpy() - w)) / np.max(np.abs(w)) < 1e-5
@@ -107,7 +115,7 @@ def test_causal_conv_matches_repro():
     w = rng.standard_normal((4, 24)).astype(np.float32)
     b = rng.standard_normal((24,)).astype(np.float32)
     want = jm._causal_conv(jnp.asarray(x), jnp.asarray(w), jnp.asarray(b))
-    got = tm._causal_conv(torch.from_numpy(x), torch.from_numpy(w), torch.from_numpy(b))
+    got = causal_conv_plain(torch.from_numpy(x), torch.from_numpy(w), torch.from_numpy(b))
     assert got.is_contiguous()
     _close(got, want, 1e-5)
 
@@ -125,8 +133,10 @@ def test_ssd_chunked_matches_repro(use_kernel, with_h0):
     h0 = rng.standard_normal((Bsz, H, P, N)).astype(np.float32) if with_h0 else None
     jy, jh = jm.ssd_chunked(*(jnp.asarray(a) for a in (x, dt, A, Bm, C)), Q,
                             None if h0 is None else jnp.asarray(h0), use_kernel=use_kernel)
-    ty, th = tm.ssd_chunked(*(torch.from_numpy(a) for a in (x, dt, A, Bm, C)), Q,
-                            None if h0 is None else torch.from_numpy(h0))
+    # the port's C and B in one group, (B, S, 1, N)
+    ty, th = tm.ssd_chunked(*(torch.from_numpy(a) for a in (x, dt, A, Bm[:, :, None],
+                                                            C[:, :, None])),
+                            Q, None if h0 is None else torch.from_numpy(h0))
     assert ty.shape == (Bsz, S, H, P) and th.shape == (Bsz, H, P, N)
     _close(ty, jy, TOL)
     _close(th, jh, TOL)

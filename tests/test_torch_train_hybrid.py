@@ -83,8 +83,8 @@ def test_ssd_chunked_grads_with_initial_state():
     gradient within 1e-5 of its max."""
     rng = np.random.default_rng(31)
     Bsz, S_, H, P, N, Q = 2, 37, 3, 4, 5, 8
-    arrs = [rng.standard_normal(s) for s in ((Bsz, S_, H, P), (Bsz, S_, H), (Bsz, S_, N),
-                                            (Bsz, S_, N), (Bsz, H, P, N))]
+    arrs = [rng.standard_normal(s) for s in ((Bsz, S_, H, P), (Bsz, S_, H), (Bsz, S_, 1, N),
+                                            (Bsz, S_, 1, N), (Bsz, H, P, N))]
     x, dt_raw, Bm, Cm, h0 = (torch.from_numpy(a).requires_grad_() for a in arrs)
     A = -torch.tensor([0.5, 1.0, 2.0], dtype=torch.float64)
     dt = torch.nn.functional.softplus(dt_raw)
@@ -98,8 +98,8 @@ def test_ssd_chunked_grads_with_initial_state():
     for t in range(S_):
         a = torch.exp(dt[:, t] * A)
         h = a[..., None, None] * h + torch.einsum("bhp,bn->bhpn", dt[:, t, :, None] * x[:, t],
-                                                  Bm[:, t])
-        ys.append(torch.einsum("bn,bhpn->bhp", Cm[:, t], h))
+                                                  Bm[:, t, 0])
+        ys.append(torch.einsum("bn,bhpn->bhp", Cm[:, t, 0], h))
     (torch.stack(ys, 1).square().sum() + h.sum()).backward()
     for g, t in zip(got, (x, dt_raw, Bm, Cm, h0)):
         assert float((g - t.grad).abs().max() / t.grad.abs().max()) < 1e-5

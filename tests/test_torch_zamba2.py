@@ -250,7 +250,8 @@ def test_grouped_ssd_plain_matches_its_groups_one_at_a_time():
     per = H // G
     for k in range(G):
         hs = slice(k * per, (k + 1) * per)
-        want = ssd_intra_chunk_plain(la[..., hs], C[:, :, :, k], Bm[:, :, :, k], x[:, :, :, hs])
+        want = ssd_intra_chunk_plain(la[..., hs], C[:, :, :, k:k + 1], Bm[:, :, :, k:k + 1],
+                                     x[:, :, :, hs])
         for a, b in zip((y[:, :, :, hs], st[:, :, hs], tot[:, :, hs]), want):
             torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
 

@@ -250,8 +250,9 @@ def _local_kernels(mesh) -> dict:
     out = {"flash": run(ops.flash_attention, flash_attention_plain, qkv,
                         [[Shard(0), Shard(2)], kv_pl, kv_pl])}
     B, nc, Q, H, N, P = 2, 2, 8, 4, 4, 4
-    ssd = [-torch.rand((B, nc, Q, H), generator=g) * 0.1, torch.randn((B, nc, Q, N), generator=g),
-           torch.randn((B, nc, Q, N), generator=g), torch.randn((B, nc, Q, H, P), generator=g)]
+    ssd = [-torch.rand((B, nc, Q, H), generator=g) * 0.1,
+           torch.randn((B, nc, Q, 1, N), generator=g), torch.randn((B, nc, Q, 1, N), generator=g),
+           torch.randn((B, nc, Q, H, P), generator=g)]
     heads = [Shard(0), Shard(3)]
     out["ssd"] = run(ops.ssd_intra_chunk, ssd_intra_chunk_plain, ssd,
                      [heads, kv_pl, kv_pl, heads])

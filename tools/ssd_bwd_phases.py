@@ -140,7 +140,7 @@ def main() -> int:
     g = torch.Generator(device=dev).manual_seed(3)
     ins = [-F.softplus(torch.randn((Bs, nc, Q, H), generator=g, device=dev))]
     ins += [torch.randn(s, generator=g, device=dev)
-            for s in ((Bs, nc, Q, N), (Bs, nc, Q, N), (Bs, nc, Q, H, P), (Bs, nc, Q, H, P),
+            for s in ((Bs, nc, Q, 1, N), (Bs, nc, Q, 1, N), (Bs, nc, Q, H, P), (Bs, nc, Q, H, P),
                       (Bs, nc, H, P, N), (Bs, nc, H))]
 
     for _ in range(3):

@@ -56,8 +56,8 @@ def scan_cases(dev, small: bool, long: int):
     def inputs(B, S, grad):
         x = torch.randn((B, S, H, P), generator=g, device=dev)
         dt = torch.rand((B, S, H), generator=g, device=dev) * 0.1
-        Bm = torch.randn((B, S, N), generator=g, device=dev) * 0.1
-        Cm = torch.randn((B, S, N), generator=g, device=dev) * 0.1
+        Bm = torch.randn((B, S, 1, N), generator=g, device=dev) * 0.1
+        Cm = torch.randn((B, S, 1, N), generator=g, device=dev) * 0.1
         A = -torch.rand((H,), generator=g, device=dev) - 0.5
         if grad:
             for t in (x, dt, Bm, Cm):

@@ -96,7 +96,7 @@ def main() -> int:
         z = torch.randn((Bs, nc, Q, H), generator=g, device=dev)
         la = {"small": -z.abs() * 0.1, "model": -F.softplus(z), "mixed": z * 0.05}[la_kind]
         return [la] + [torch.randn(s, generator=g, device=dev)
-                       for s in ((Bs, nc, Q, N), (Bs, nc, Q, N), (Bs, nc, Q, H, P),
+                       for s in ((Bs, nc, Q, 1, N), (Bs, nc, Q, 1, N), (Bs, nc, Q, H, P),
                                  (Bs, nc, Q, H, P), (Bs, nc, H, P, N), (Bs, nc, H))]
 
     def outputs(shape):
@@ -104,8 +104,8 @@ def main() -> int:
         BC, Qp = Bs * nc, -(-Q // 16) * 16
         hg = bwd_heads_per_block(BC, H, n_sm)
         ngrp = math.ceil(H / hg)
-        outs = [torch.empty(s, device=dev) for s in ((Bs, nc, Q, H), (Bs, nc, Q, N),
-                                                     (Bs, nc, Q, N), (Bs, nc, Q, H, P),
+        outs = [torch.empty(s, device=dev) for s in ((Bs, nc, Q, H), (Bs, nc, Q, 1, N),
+                                                     (Bs, nc, Q, 1, N), (Bs, nc, Q, H, P),
                                                      (BC, ngrp, Qp, Qp), (BC, ngrp, Qp, N))]
         return outs, hg
 

@@ -79,7 +79,7 @@ def main() -> int:
         g = torch.Generator(device=dev).manual_seed(seed)
         return [[la_of(torch.randn((Bs, nc, Q, H), generator=g, device=dev))]
                 + [torch.randn(s, generator=g, device=dev)
-                   for s in ((Bs, nc, Q, N), (Bs, nc, Q, N), (Bs, nc, Q, H, P))]
+                   for s in ((Bs, nc, Q, 1, N), (Bs, nc, Q, 1, N), (Bs, nc, Q, H, P))]
                 for _ in range(n_sets)]
 
     def outputs(shape):
